@@ -1,12 +1,12 @@
-"""TPU-native laser-grid cylinder pose estimation framework.
+"""Laser-grid cylinder pose estimation as one batched JAX program.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-cv3vpl-lab/cylinder-pose-estimation (reference mounted at /root/reference):
+A from-scratch JAX/XLA rebuild of the capabilities of
+cv3vpl-lab/cylinder-pose-estimation:
 stereo laser-grid detection (ref: python_grid_detection_{plane,cylinder}.py,
 utils/util_{plane,cylinder}.py) and the 3D geometry chain (ref: utils/*.m) as
 one batched, jittable program over fixed-shape masked arrays.
 
-Layer map (mirrors SURVEY.md §1, redesigned TPU-first):
+Layer map (mirrors SURVEY.md §1, redesigned for a batched accelerator):
   ops/       -- image & numeric kernels (filters, morphology, labeling,
                 batched polyfit, Levenberg-Marquardt) -- replaces the
                 OpenCV/skimage/scipy primitives the reference calls.

@@ -14,7 +14,8 @@
                     per-image "average error = a -> b mm" lines
                     (ref utils/fitSingleCylinder.m:28).
 
-Image I/O is host-side PIL; everything numeric is the jitted TPU pipeline.
+Image I/O is host-side PIL (the optional ``images`` extra); everything
+numeric is the jitted pipeline.
 """
 
 from __future__ import annotations
@@ -40,15 +41,24 @@ def _progress(it, desc: str):
         return it
 
 
-def load_image(path: str) -> np.ndarray:
-    from PIL import Image
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SystemExit(
+            "image I/O needs Pillow, which is not installed: "
+            "pip install 'cylinder-pose-estimation-tpu[images]'"
+        ) from e
+    return Image
 
+
+def load_image(path: str) -> np.ndarray:
+    Image = _pil_image()
     return np.asarray(Image.open(path).convert("L"), np.float32)
 
 
 def save_image(path: str, arr: np.ndarray) -> None:
-    from PIL import Image
-
+    Image = _pil_image()
     Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(path)
 
 
@@ -326,15 +336,13 @@ def main(argv=None) -> None:
 
     args = p.parse_args(argv)
     # Persist compiled executables across CLI invocations: the chunked
-    # detect program takes minutes to compile cold (especially on a CPU
-    # host), and every repeat run with the same image shape is then instant.
-    import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.expanduser("~/.cache/cylpose_jax"),
+    # detect program takes minutes to compile cold, and every repeat run
+    # with the same image shape is then instant.
+    from cylinder_pose_estimation_tpu.utils.compile_cache import (
+        enable_compile_cache,
     )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Static configuration for the TPU pipeline.
+"""Static configuration for the detect->pose pipeline.
 
 The reference scatters its configuration as hardcoded constants at call sites
 (SURVEY.md §5 "Config / flag system"): cylinder radius 45
@@ -32,7 +32,7 @@ class DetectConfig:
     height: int = 480
     width: int = 640
     # Capacity of the fixed-size point/label arrays (ragged data in the
-    # reference becomes dense arrays + validity masks on TPU).
+    # reference becomes dense arrays + validity masks).
     max_points: int = 512        # joint centroids / grid points per image
     max_rows: int = 24           # row labels (reference uses dicts keyed row1..N)
     max_cols: int = 24           # col labels
@@ -67,8 +67,7 @@ class DetectConfig:
                                  # radius; joint blobs are the AND of two
                                  # <= 9 px line openings).  8 was the 2x-
                                  # margin setting; 5 is xy-identical over the
-                                 # 16-scene bench with exact A/B parity and
-                                 # -0.01 ms/frame (r2 sweep 015)
+                                 # 16-scene bench
 
     # --- saturation masking (ref utils/util_cylinder.py:1944-2007) ---------
     sat_blur_ksize: int = 19
@@ -80,55 +79,24 @@ class DetectConfig:
     bridge_skip_long: bool = True  # don't expand near-full-length segments
     bridge_long_frac: float = 0.8  # "long" = extent > frac * max extent
                                    # (ref utils/util_cylinder.py:169 gate)
-    bridge_endpoint_stats: bool = False  # Pallas path only: derive the
-                                 # bridge's per-component angle/extent from
-                                 # scan-order endpoints (dual-channel CC
-                                 # kernel) instead of second moments --
-                                 # removes every (H*W, K) one-hot pass and
-                                 # the K component capacity from the bridge
     bridge_stats_k: int = 32     # line components tracked for the bridge's
                                  # angle/expandability stats (the one-hot
                                  # stats matmuls and the (HW, K) gate compare
                                  # scale linearly in K; a 480x640 grid scene
                                  # has < 30 line fragments per orientation --
                                  # at the bridge's half resolution fragments
-                                 # only merge, so 32 keeps margin; A/B parity
-                                 # exact, jobs 022/026)
-    lowres_cc_rounds: int = 2    # pool+scan rounds for the shared quarter-res
-                                 # ROI/saturation-blob labeling.  rounds=1
-                                 # converges on the 16 mild bench scenes but
-                                 # UNDER-converges on tilted sparse grids
-                                 # (comb-shaped lowres blobs): a 64-scene
-                                 # randomized sweep showed 21 scenes with
-                                 # fragmented ROI labels at rounds=1, fixed
-                                 # and stable at rounds>=2 (rounds 2/3/4
-                                 # bit-identical, matching the XLA path's
-                                 # converged labels).  Costs ~0.01 ms/view.
+                                 # only merge, so 32 keeps margin)
     bridge_stats_quarter: bool = True  # compute the bridge's moment stats
                                  # over 2x2-min-pooled labels (4x smaller
                                  # one-hot passes; gates keep px meaning via
-                                 # a 2x moment rescale; A/B parity exact and
-                                 # -0.09 ms/frame, job 027)
-    pallas_cc_pools: int = 2     # 3x3 min-pools per CC round (diagonal/local
-                                 # hops between the row/col segmented scans)
-                                 # for the pre- and post-bridge labelings.
-                                 # Line masks are scan-friendly (runs along
-                                 # rows/cols do the long-range work), but 1
-                                 # pool/round UNDER-CONVERGES on bridged
-                                 # (bent) masks -- identical masks produced
-                                 # different labels than the converged XLA
-                                 # scans on 12/32 bench images (job 024) --
-                                 # while 2 is label-exact with margin (jobs
-                                 # 011/025).  Convergence is gated by the
-                                 # 16-scene canon A/B parity check, which
-                                 # compares against fully-converged labels
+                                 # a 2x moment rescale; xy-identical over the
+                                 # 16-scene bench)
     roi_blob_k: int = 32         # component slots for the largest-blob ROI
                                  # stats at quarter res (the (HW/16, K)
                                  # one-hot reductions scale linearly in K;
                                  # the ROI seed is a 9x9-dilated quarter-res
                                  # union -- a handful of merged blobs, so 32
-                                 # is ample; 128 -> 32 saved 0.12 ms/frame
-                                 # with exact A/B parity, job 026)
+                                 # is ample)
 
     # --- polynomial fitting (ref utils/util_cylinder.py:454-550) -----------
     poly_degree: int = 2         # cylinder path deg 2 (ref :2035)
@@ -144,13 +112,11 @@ class DetectConfig:
 
     # --- indexing (ref utils/util_cylinder.py:1350-1571) -------------------
     index_blur_ksize: int = 7    # Gaussian (7,7) before brightness scan
-    patch_half_min: int = 3      # brightness patch half-size (ref :1379 min).
-                                 # Deliberate redesign: the reference sizes the
-                                 # patch adaptively (circle_radius0/5, ref
-                                 # :1377), but a traced patch size breaks
-                                 # static shapes under jit and the center blob
-                                 # is far brighter than other joints, so the
-                                 # static minimum patch picks the same argmax.
+    patch_half_min: int = 3      # brightness patch half-size floor (ref
+                                 # :1379 min); above it the patch grows with
+                                 # the saturation radius like the reference's
+                                 # (circle_radius0/5, ref :1377; detector
+                                 # stage 6g, traced-range rectangle means).
 
     # --- result gating ------------------------------------------------------
     # Minimum accepted intersections for DetectResult.ok.  The downstream
@@ -159,9 +125,9 @@ class DetectConfig:
     # run the LM chain on garbage with ok=True.
     min_ok_points: int = 20
     # Stability fence for the documented steep-diagonal chaotic regime
-    # (NEXT.md job 019: on >= ~30 deg diagonal grids NOTHING agrees --
-    # converged Pallas, XLA and CPU all label differently because fragment
-    # merges cascade through polyfit/indexing).  DetectResult.stable is False
+    # (PARITY.md, known deviations: on >= ~30 deg diagonal grids fragment
+    # merges cascade through polyfit/indexing, so small numeric differences
+    # change the labels).  DetectResult.stable is False
     # when the median |line tilt| from the grid axes exceeds this (radians)
     # or the final labeling CC did not reach its fixpoint; frame_health
     # masks such frames out of multi-frame registration.
@@ -188,106 +154,22 @@ class DetectConfig:
     # image compute dtype ("float32" or "bfloat16" for the filter front-end)
     image_dtype: str = "float32"
 
-    # --- backend -------------------------------------------------------------
-    # VMEM-resident Pallas kernels for the stencil-heavy stages (preprocess/
-    # binarize/openings fused into one kernel; connected components as
-    # in-VMEM label propagation).  The XLA path (False) is the portable
-    # reference implementation used by CPU tests.
-    use_pallas: bool = False
-    pallas_cc_rounds: int = 3    # CC rounds (pools + row/col segmented scans);
-                                 # convergence needs O(direction changes) --
-                                 # bridged laser-grid lines are monotone
-                                 # curves.  Measured exact (A/B vs converged
-                                 # XLA labels: 448/448 pts, 0.0 px over 16
-                                 # scenes) at 3 rounds (sweep jobs 005/011);
-                                 # 6 was the original 2x-margin setting, each
-                                 # round ~0.05 ms/frame at half-res on v5e.
-                                 # Raise if scenes with more direction
-                                 # changes ever miss parity.
-    pallas_cc_rounds_prebridge: int = 2  # the pre-bridge labeling sees only
-                                 # un-bridged line fragments (smooth arcs, no
-                                 # bends), but its labels feed the bridge's
-                                 # long-skip gate, so UNDER-convergence
-                                 # splits fragments and flips gates: 2
-                                 # rounds at pools=1 measurably diverged
-                                 # from the converged XLA labels once
-                                 # bridging went active (698-px bridge-mask
-                                 # delta on a bench scene) while 2 rounds at
-                                 # pools=2 is exact (jobs 024/025).  A/B
-                                 # parity vs the fully-converged XLA labels
-                                 # is the check
-    cc_warm_start: bool = True   # Pallas path: seed the FINAL labels CC with
-                                 # the bridge stage's pre-bridge fragment
-                                 # labels.  Min-propagation's fixpoint (per-
-                                 # component min linear index) is unchanged;
-                                 # convergence only has to cross the bridge-
-                                 # added pixels, so pallas_cc_rounds_warm
-                                 # rounds replace pallas_cc_rounds.  No-op on
-                                 # the XLA path and when bridge_endpoint_stats
-                                 # provides no label image.
-    pallas_cc_rounds_warm: int = 2  # final-CC rounds under cc_warm_start:
-                                 # prebridge(2) + warm(N) total propagation
-                                 # depth must cover what cold-start needed 3
-                                 # rounds for, PLUS flooding across newly
-                                 # bridged joins.  warm=1 was shipped in r2/r3
-                                 # on the claim that one round's full-row/col
-                                 # segmented scans traverse every bridge in a
-                                 # single pass -- validated only on the 16
-                                 # bench scenes, where bridging is a NO-OP
-                                 # (vacuous for exactly the case warm rounds
-                                 # must survive).  Round 4's rendered line-gap
-                                 # scene (tests/test_detector_hardening.py::
-                                 # test_rendered_line_gap_bridged_on_pallas_
-                                 # interpret) caught it: a bridged VERTICAL
-                                 # line's connecting path jogs a column, so
-                                 # one column scan cannot carry the label
-                                 # through -- warm1 left the line split in two
-                                 # labels (duplicate grid columns), warm2 ==
-                                 # cold3 == XLA exactly.  Cost of the extra
-                                 # round: ~0.02 ms/frame.
-    pallas_interpret: bool = False  # interpreter mode (for CPU validation)
+    # --- stage variants ------------------------------------------------------
     bridge_half_res: bool = True  # run the ENTIRE bridge (stats + endpoint
                                  # probes + oriented dilation) at label
                                  # (half) resolution with kernel reach and
-                                 # probe halved, on BOTH backends: bridged
-                                 # masks only feed the half-res labeling CC,
-                                 # so this quarters the dominant bridge cost
-                                 # -- and sharing the resolution across the
-                                 # Pallas and XLA paths is what makes the
-                                 # A/B parity gate meaningful now that
-                                 # bridging is active (a full-res XLA bridge
-                                 # vs a half-res Pallas bridge legitimately
-                                 # differ by ~0.14 px on bridged scenes).
+                                 # probe halved: bridged masks only feed the
+                                 # half-res labeling CC, so this quarters the
+                                 # bridge's pixel count.
     bright_at_points: bool = True  # evaluate the center-seed and grid-origin
                                  # brightness statistics AT their few hundred
                                  # query points (ops/mxu_conv.conv_at_points:
                                  # per-point banded HIGHEST dots) instead of
                                  # filtering full images and dynamic-gathering
-                                 # from them -- TPU gathers cost ~0.03 ms/view
-                                 # (hidden from xy-only stage probes by DCE).
-                                 # Same exact-mode arithmetic up to f32
-                                 # summation order; shared by both backends.
-    pallas_cc_cross_cap: int = 0  # final-labels CC: cap the segmented scan
-                                 # PERPENDICULAR to each line mask's
-                                 # orientation at this many (half-res) px
-                                 # per round (0 = off, one batched launch
-                                 # for the h/v pair).  Default OFF: measured
-                                 # on TPU (job 011), cap 16 at the shipped
-                                 # pallas_cc_rounds=3 changes a tilted
-                                 # scene's point set (steep diagonal lines
-                                 # are where convergence is marginal) for
-                                 # only ~2% e2e -- enable only with rounds
-                                 # raised enough to re-converge.
-    smooth_mxu: bool = True      # Pallas path only: compute the composed
-                                 # Gaussian(blur_ksize) o Gaussian(ridge_
-                                 # sigma) smoothing OUTSIDE the preprocess
-                                 # kernel as banded MXU matmuls (ops/
-                                 # mxu_conv, exact mode) and feed the kernel
-                                 # the smoothed image -- the kernel's
-                                 # largest VPU roll chain rides the matrix
-                                 # unit instead.  Border band (zero pad vs
-                                 # the kernel's circular wrap) is inside the
-                                 # detector margin either way.
+                                 # from them (chosen for the first target
+                                 # accelerator, whose gathers were slow; not
+                                 # measured on the GPU).  Same exact-mode
+                                 # arithmetic up to f32 summation order.
     stage_probe: str = ""        # profiling only: truncate detect_grid after
                                  # the named stage (preprocess/centroids/roi/
                                  # seed/carve/bridge/labels/assign/polyfit/
@@ -402,9 +284,7 @@ class FitConfig:
                                     # its AXIS between 12 and 20 iters
                                     # (3.0 deg -> <0.3 deg): reprojection
                                     # converges before direction does.  20 is
-                                    # the floor for pose accuracy; each iter
-                                    # costs ~3 us/frame on v5e so 12 would
-                                    # only buy 0.025 ms/frame.
+                                    # the floor for pose accuracy.
     lm_lambda0: float = 1e-3
     dtype: str = "float32"
 
@@ -438,7 +318,7 @@ class RegistrationConfig:
     # radius so the value is invariant to units / robot scale / working
     # distance (round 4; verified identical at 1x and 2x full geometric
     # scale).  A narrow pan swing leaves t_cam_agv's along-axis translation
-    # unobservable (a LOWER objective than ground truth exists -- NEXT.md
+    # unobservable (a LOWER objective than ground truth exists -- PARITY.md
     # gauge-flatness diagnosis; the reference shares the failure mode,
     # ref utils/fitCylinderWPts3sAngs.m:71-94).  Measured: ~5.5e-3/frame for
     # a +-0.5 rad pan sweep, ~2.2e-4/frame at +-0.05 rad -- a 24x

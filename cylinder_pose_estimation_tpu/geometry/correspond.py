@@ -10,7 +10,7 @@ Replaces the reference's dict/loop machinery with a dense grid-index raster:
     slides a patchSize x patchSize window over the index grid, triangulates
     each complete patch, keeps patches with mean reprojection error below the
     threshold, and per point keeps the min-error candidate across overlapping
-    patches.  KEY SIMPLIFICATION (same math, TPU shape): MATLAB triangulate's
+    patches.  KEY SIMPLIFICATION (same math, batched shape): MATLAB triangulate's
     per-point reprojection error depends only on that point's pixel pair --
     it is identical in every patch containing the point, so "min across
     patches" is the point's own error and the whole procedure reduces to:
@@ -52,9 +52,9 @@ def _rasterize(
 
     Cell layout: [x_index - offset_x, y_index - offset_y].  Scatter-free: a
     (P, G) row one-hot and a (P, G, 2+1) col/payload product reduce onto the
-    raster with one MXU matmul -- TPU scatters cost ~0.5 ms each under vmap
-    (5 of them made choose_idx the fit path's hottest op at 2.3 ms/frame),
-    the matmul form ~0.05 ms.  Duplicate indices (should not occur after
+    raster with one matmul (chosen for the first target accelerator, where
+    scatters under vmap were slow; not measured on the GPU).  Duplicate
+    indices (should not occur after
     relabeling) average their coords (the reference's ismember takes the
     first match -- both are degenerate).
     """
@@ -203,7 +203,8 @@ def choose_idx(
 
     selected_c = _anchor_max(patch_ok, patch_size, extent) & both_c
     # Un-permute with two permutation matmuls (selected[perm_r[i], perm_c[j]]
-    # = selected_c[i, j]); a scatter here costs ~0.5 ms on TPU.
+    # = selected_c[i, j]) instead of a scatter (chosen for the first target
+    # accelerator; not measured on the GPU).
     ar = jnp.arange(extent)
     p_r = (perm_r[:, None] == ar[None, :]).astype(jnp.float32)  # (G, G)
     p_c = (perm_c[:, None] == ar[None, :]).astype(jnp.float32)

@@ -6,7 +6,7 @@ z = a x^2 + b xy + c y^2 + d x + e y, eig of the shape matrix
 [[2a, b], [b, 2c]]) with fully batched masked operations:
 
   * kNN: masked pairwise squared distances + lax.top_k (point counts here are
-    a few hundred, so the dense (N, N) matrix is tiny for a TPU);
+    a few hundred, so the dense (N, N) matrix is tiny);
   * per-neighborhood plane fit: batched 3x3 eigh;
   * quadric: one batched (N, 5, 5) normal-equations solve;
   * shape eig: closed-form 2x2.
@@ -82,13 +82,13 @@ def _curvature_from_neighborhood(
     normal = vecs[..., :, 0]                      # (..., 3)
 
     frame = _local_frame(normal)                  # (..., 3, 3)
-    local = (nbr - mean) @ frame                  # (..., k, 3)
+    local = mm(nbr - mean, frame)                 # (..., k, 3)
     x, y, z = local[..., 0], local[..., 1], local[..., 2]
     a = jnp.stack([x * x, x * y, y * y, x, y], axis=-1)  # (..., k, 5)
     coeffs = solve_normal_equations(a, z, nbr_valid.astype(dtype))  # (..., 5)
 
     evals, evecs2 = eigh2x2(2.0 * coeffs[..., 0], coeffs[..., 1], 2.0 * coeffs[..., 2])
-    directions = frame[..., :2] @ evecs2          # (..., 3, 2)
+    directions = mm(frame[..., :2], evecs2)       # (..., 3, 2)
     flat = jnp.argmin(jnp.abs(evals), axis=-1)    # min |curvature| -> axis dir
     hot = (jnp.arange(2) == flat[..., None]).astype(dtype)  # gather-free select
     flat_dir = jnp.sum(directions * hot[..., None, :], axis=-1)
@@ -125,14 +125,14 @@ def estimate_curvature_at(
 
     The cylinder init needs the flat direction only at the point closest to
     the radial line (ref utils/fitCylinderWPts3.m:29), so computing all N
-    neighborhoods is N x wasted work (~2.9 ms/frame measured on v5e at
-    N=576 vs ~0.05 ms for this).  Numerically identical to
+    neighborhoods is N x wasted work.  Numerically identical to
     ``estimate_curvatures(pts, valid, k).flat_direction[idx]``: the same
     distance row, same top_k tie-breaking, same neighborhood math.
 
     Gather-free on purpose: the point select and the k-neighbor select are
-    one-hot HIGHEST-precision matmuls (exact for a 0/1 left operand; TPU
-    dynamic gathers under vmap are disproportionately slow -- see NEXT.md).
+    one-hot HIGHEST-precision matmuls (exact for a 0/1 left operand; the
+    form was chosen for the first target accelerator, whose dynamic gathers
+    under vmap were slow, and has not been measured on the GPU).
     """
     n = pts.shape[0]
     dtype = pts.dtype

@@ -1,6 +1,6 @@
 """Cylinder fitting: residuals, curvature-seeded init, LM refinement, priors.
 
-The TPU-native equivalent of the reference's chain
+The batched equivalent of the reference's chain
   getDistPts3ToLine (ref utils/getDistPts3ToLine.m)
   fitCylinderWPts3   (ref utils/fitCylinderWPts3.m: PCA + curvature init,
                       fminsearch over [origin, direction])
@@ -109,8 +109,8 @@ def init_cylinder(
     d2surface = jnp.linalg.norm(ctr - closest, axis=-1)
 
     # Curvature only at the closest point (all the init consumes, ref
-    # utils/fitCylinderWPts3.m:29) -- the all-points batch was the fit
-    # path's dominant cost (2.9 ms/frame on v5e at N=576).
+    # utils/fitCylinderWPts3.m:29) -- the all-points batch does N times
+    # the work.
     curv = estimate_curvature_at(pts, valid, i, k=knn_k)
     cyldir = curv.flat_direction
 

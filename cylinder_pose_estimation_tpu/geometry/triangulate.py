@@ -7,8 +7,8 @@ utils/triangulateWithThreshold.m:28) with a dense, vmappable DLT:
   * per point, the 4x4 DLT system rows are x*P3 - P1, y*P3 - P2 for both
     views; with w fixed to 1 (finite scene points) the spatial coordinates
     solve a symmetric 3x3 normal system in closed form -- pure elementwise
-    arithmetic that XLA fuses into one kernel, far friendlier to TPU than
-    per-point SVD/eigh and equivalent for well-conditioned stereo.
+    arithmetic that XLA fuses into one kernel, in place of per-point
+    SVD/eigh, and equivalent for well-conditioned stereo.
   * the per-point reprojection error is the mean of the two views' Euclidean
     pixel errors, matching MATLAB triangulate's reprojectionErrors output that
     the reference thresholds on (ref utils/chooseIdx.m:66, 0.3 px).
@@ -83,9 +83,9 @@ def triangulate(
     # least-squares the 3 spatial coordinates -- min |B X + c|^2 with
     # B = A[..., :3], c = A[..., 3].  The normal equations are a symmetric
     # 3x3 solved in closed form (adjugate/Cramer): pure elementwise
-    # arithmetic that fuses into one kernel, where the previous
-    # smallest-eigenvector-of-4x4 (jnp.linalg.eigh) cost ~0.3 ms/frame of
-    # batched QR iterations on v5e.  Estimator delta vs the homogeneous TLS
+    # arithmetic that fuses into one kernel, in place of the previous
+    # smallest-eigenvector-of-4x4 (jnp.linalg.eigh, batched QR
+    # iterations).  Estimator delta vs the homogeneous TLS
     # form is far below the 1e-3 px parity budget for well-conditioned
     # stereo (normalized coords keep B entries O(1)).
     b = a[..., :, :3]

@@ -1,6 +1,6 @@
 """Laser-grid detection front-end: image in, indexed grid points out.
 
-The TPU-native rebuild of the reference's detect_grid six-stage pipeline
+The batched JAX rebuild of the reference's detect_grid six-stage pipeline
 (ref python_grid_detection_cylinder.py:68-112, python_grid_detection_plane.py:74-119,
 orchestrated by color_and_expand_lines, ref utils/util_cylinder.py:2014-2060):
 
@@ -26,9 +26,7 @@ does not bind -- SURVEY.md §7 hard parts (c)):
     (a circumscribing circle; the +5/+20 padding absorbs the difference).
   * per-contour PCA endpoint expansion -> dense directional endpoint
     detection + oriented line dilation at the component-median angle.
-  * per-point adaptive brightness patch (circle_radius0/5) -> static patch
-    (config.patch_half_min); the center blob is far brighter than other
-    joints, so the argmax is insensitive to patch size.
+(PARITY.md keeps the full list.)
 """
 
 from __future__ import annotations
@@ -67,11 +65,8 @@ def _border_margin(cfg: DetectConfig) -> int:
 
     Must cover the chain's full stencil reach -- Gaussian blur radius +
     scipy sigma-Gaussian radius + two central-difference passes + Sauvola
-    box radius, +1 safety -- so the Pallas kernel's circular rolls can never
-    leak opposite-edge content into KEPT pixels (with the old
-    margin=line_kernel_len=20 and a reach of 23, pixels 20-22 from an edge
-    read up to 3 wrapped rows, silently breaking bit-exact A/B parity on
-    border-content scenes).  Also at least the line-opening length, below
+    box radius, +1 safety -- so no kept pixel depends on how the filters
+    treat the image border.  Also at least the line-opening length, below
     which edge-clipped line responses fragment."""
     reach = (
         (cfg.blur_ksize - 1) // 2
@@ -81,22 +76,6 @@ def _border_margin(cfg: DetectConfig) -> int:
         + 1
     )
     return max(cfg.line_kernel_len, reach)
-
-
-def _cc(mask: jnp.ndarray, xla_iters: int, cfg: DetectConfig, frac: float = 1.0):
-    """Connected components: Pallas VMEM propagation or the XLA scan path.
-
-    frac scales the Pallas pool-iteration budget by expected component
-    diameter (small blobs need far fewer rounds than full-length lines).
-    """
-    if cfg.use_pallas:
-        from cylinder_pose_estimation_tpu.ops.pallas.frontend import (
-            connected_components as cc_pallas,
-        )
-
-        rounds = max(6, int(round(cfg.pallas_cc_rounds * frac)))
-        return cc_pallas(mask, rounds=rounds, interpret=cfg.pallas_interpret)
-    return labeling.connected_components(mask, iters=xla_iters)
 
 
 class DetectDebug(NamedTuple):
@@ -156,11 +135,9 @@ def _joint_centroids(
     ``peak_iters`` bounds the blob graph-radius (8 covers blobs up to
     ~17 px across; blobs are the AND of two <=9 px line masks).
 
-    ``precomputed``: optional (peak 0/1 float, cx, cy) full-res images from
-    the fused Pallas kernel (ops/pallas/frontend.preprocess_binarize) --
-    identical math in one VMEM pass; this function then only runs the
-    block-reduce compaction (the 16 full-res XLA max passes below were
-    measured at ~0.7 ms/frame(2v) on v5e, the kernel version ~free).
+    ``precomputed``: optional (peak 0/1 float, cx, cy) full-res images, as
+    detect_grid computes them alongside its other statistic images; this
+    function then only runs the block-reduce compaction.
 
     Returns (centroids (P, 2) float, valid (P,)) with P = cfg.max_points.
     """
@@ -187,9 +164,9 @@ def _joint_centroids(
     # reducing the compaction from H*W to H*W/16 elements.  The centroid
     # PAYLOAD (cx, cy at the peak) rides the same block reduce (max with a
     # -1 background; at most one peak per block makes the max exact), so the
-    # compaction is one one-hot MXU matmul with NO full-res dynamic gathers
-    # (two 512-index gathers from a 307k-element image measured ~0.05
-    # ms/frame on v5e -- TPU gathers are disproportionately slow).
+    # compaction is one one-hot matmul with NO full-res dynamic gathers
+    # (a form chosen for the first target accelerator, whose gathers were
+    # slow; not measured on the GPU).
     neg1 = jnp.float32(-1.0)
     pkx = jnp.where(peak, cx, neg1)
     pky = jnp.where(peak, cy, neg1)
@@ -232,9 +209,8 @@ def _joint_peaks(
     window: int = 11,
 ) -> jnp.ndarray:
     """Per-blob peak mask: the unique pixel maximizing the (box-count,
-    linear-index) key within its 8-connected joint blob -- the XLA mirror of
-    the propagation fused into the Pallas preprocess kernel (exact integer
-    keys, so both produce identical peaks).  See _joint_centroids."""
+    linear-index) key within its 8-connected joint blob (exact integer
+    keys).  See _joint_centroids."""
     h, w = joints.shape
     lin = jnp.arange(h * w, dtype=jnp.int32).reshape(h, w)
     key = cnt.astype(jnp.int32) * (
@@ -243,8 +219,8 @@ def _joint_peaks(
     neg = jnp.iinfo(jnp.int32).min
     km = jnp.where(joints, key, neg)
     for _ in range(peak_iters):
-        km = jax.lax.reduce_window(km, neg, jax.lax.max, (3, 1), (1, 1), "SAME")
-        km = jax.lax.reduce_window(km, neg, jax.lax.max, (1, 3), (1, 1), "SAME")
+        km = labeling.window_extreme(km, 3, 1, neg, jnp.maximum)
+        km = labeling.window_extreme(km, 1, 3, neg, jnp.maximum)
         km = jnp.where(joints, km, neg)
     return joints & (key == km)
 
@@ -257,9 +233,7 @@ def _stats_images(
     joint_window: int = 11,
 ) -> Tuple[jnp.ndarray, ...]:
     """Saturation / brightness / joint-centroid statistic images as banded
-    MXU matmuls (ops/mxu_conv), shared VERBATIM by the Pallas and XLA
-    detector paths -- so A/B path parity for these images holds by
-    construction.
+    matmuls (ops/mxu_conv).
 
     Replaces (ref provenance):
       * saturation blur+threshold   (ref utils/util_cylinder.py:1962-1967)
@@ -299,8 +273,8 @@ def _stats_images(
         # integer points (joint centroids): conv_at_points evaluates the
         # same exact-mode separable correlation AT those points -- one
         # (P, H) x (H, W) HIGHEST matmul instead of two full-image exact
-        # matmuls PLUS a TPU dynamic gather (the gathers alone were
-        # ~0.03 ms/view, hidden from earlier stage probes by xy-only DCE).
+        # matmuls plus a dynamic gather (chosen for the first target
+        # accelerator; not measured on the GPU).
         bright_center = None
     else:
         pc = 2 * cfg.center_patch_half + 1
@@ -338,16 +312,18 @@ def _stats_images(
 
 
 # Lowres canvas shift: pooled content sits at [_SHIFT4:, _SHIFT4:] inside the
-# padded canvas so the CC kernels' 1-px anti-wrap border ring only ever
-# touches padding, never real content (a lowres px is 4 full-res px -- an
-# unshifted ring was measured to drop border-row grid points).
+# padded canvas so the labeling's cleared 1-px border ring (_cc_lowres_pair)
+# only ever touches padding, never real content (a lowres px is 4 full-res
+# px -- an unshifted ring was measured to drop border-row grid points).
+# The shift and the (8, 128) padding of the lowres canvases were shaped for
+# the first target accelerator's tiles; the golden fixtures pin them
+# (ROADMAP Speed 5).
 _SHIFT4 = 1
 
 
 def _pool2_pad(mask: jnp.ndarray) -> jnp.ndarray:
-    """Half-res max-pool into a TPU-tiled padded canvas (no shift needed:
-    line masks carry a >= line_kernel_len border margin, far wider than the
-    CC kernels' 1-px anti-wrap ring at half resolution).
+    """Half-res max-pool into an (8, 128)-padded canvas (no shift needed:
+    line masks carry a >= line_kernel_len border margin).
 
     Connectivity semantics: components separated by >= 3 px stay separate
     (laser-grid line spacing is >= ~12 px); gaps of <= 2 px can fuse
@@ -373,15 +349,13 @@ def _upsample2(small: jnp.ndarray, h: int, w: int) -> jnp.ndarray:
 
 
 def _pool4_pad(mask: jnp.ndarray) -> jnp.ndarray:
-    """Quarter-res max-pool into a TPU-tiled padded canvas.
+    """Quarter-res max-pool into an (8, 128)-padded canvas.
 
     Content is shifted by (+_SHIFT4, +_SHIFT4); height pads to a multiple of
-    8 (sublanes) and width to a multiple of 128 (lanes) so the Pallas CC
-    kernel gets tiled shapes.  Padding is background; all lowres consumers
-    work in this canvas space and crop/offset only at the boundary back to
-    full resolution.  Accepts (H, W) or a leading stack axis (one pooled
-    launch for several masks -- the stage is launch-bound, not
-    bandwidth-bound)."""
+    8 and width to a multiple of 128.  Padding is background; all lowres
+    consumers work in this canvas space and crop/offset only at the boundary
+    back to full resolution.  Accepts (H, W) or a leading stack axis (one
+    pooled op for several masks)."""
     stacked = mask.ndim == 3
     wd = (1, 4, 4) if stacked else (4, 4)
     small = jax.lax.reduce_window(
@@ -397,33 +371,18 @@ def _pool4_pad(mask: jnp.ndarray) -> jnp.ndarray:
 def _cc_lowres_pair(
     m0: jnp.ndarray, m1: jnp.ndarray, cfg: DetectConfig
 ) -> jnp.ndarray:
-    """Label TWO quarter-res masks in ONE launch -> (2, h4, wp) labels.
+    """Label TWO quarter-res masks in one vmapped call -> (2, h4, wp) labels.
 
     The detector needs exactly two lowres labelings per image (the ROI merge
-    blob and the saturation blob); as separate XLA scan-CC calls each costs
-    ~0.6 ms/frame on v5e (hundreds of tiny launch-bound ops), while one
-    batched Pallas launch at this size is ~0.05 ms.  Lowres blobs are compact
-    (dilated unions / Gaussian-blurred disks), so 4 pool+scan rounds converge
-    with margin.
-
-    A 1-px lowres border ring is zeroed on BOTH paths: the Pallas kernel
-    forces it anyway (circular-roll anti-wrap), so clearing it here keeps the
-    XLA path bit-identical to the Pallas path at image borders."""
+    blob and the saturation blob).  Lowres blobs are compact (dilated unions
+    / Gaussian-blurred disks), so 8 pool+scan rounds converge with margin.
+    A 1-px lowres border ring is cleared; with the _SHIFT4 shift it only
+    ever holds padding."""
     h4, w4 = m0.shape
     rows = jnp.arange(h4)[:, None]
     cols = jnp.arange(w4)[None, :]
     ring = (rows >= 1) & (rows < h4 - 1) & (cols >= 1) & (cols < w4 - 1)
     stack = jnp.stack([m0 & ring, m1 & ring])
-    if cfg.use_pallas:
-        from cylinder_pose_estimation_tpu.ops.pallas.frontend import (
-            connected_components as cc_pallas,
-        )
-
-        return cc_pallas(
-            stack,
-            rounds=cfg.lowres_cc_rounds,
-            interpret=cfg.pallas_interpret,
-        )
     return jax.vmap(
         lambda m: labeling.connected_components(m, iters=min(cfg.cc_iters, 8))
     )(stack)
@@ -438,8 +397,8 @@ def _roi_cylinder_from_labels(
 
     The chain runs at 1/4 resolution: the ROI feeds a bbox, an inside-gate
     for centroids, and mask ANDs whose reference counterpart carries +35 px
-    margins, so quarter-pixel boundary fidelity is irrelevant -- while the
-    full-res dilate + fill cost ~0.9 ms/frame."""
+    margins, so quarter-pixel boundary fidelity is irrelevant, and the
+    dilate + fill run on 16x fewer pixels."""
     largest = labeling.largest_component_mask(labels, k=k) & merged
     filled = labeling.fill_orthoconvex(largest)
     h4 = -(-h // 4)
@@ -519,7 +478,8 @@ def _center_seed(
     d = jnp.linalg.norm(cents - center, axis=-1)
     d = jnp.where(inside, d, jnp.inf)
     # 2nd nearest (the nearest is the center itself): two masked mins instead
-    # of a full sort (a 512-sort is ~80 latency-bound stages on TPU).
+    # of a full sort (chosen for the first target accelerator, where a
+    # 512-sort was slow).
     i1 = jnp.argmin(d)
     d2 = jnp.min(jnp.where(jnp.arange(d.shape[0]) == i1, jnp.inf, d))
     d2 = jnp.where(jnp.isfinite(d2), d2, 0.0)
@@ -543,8 +503,8 @@ def _saturation_carve(
     specular blobs survive a 19x19 Gaussian + threshold-240, so they are
     tens of pixels across, and the measurements feed only heuristic carve
     sizes (+20/+5 radius pads, ellipse semi-axes, bridge kernel length) where
-    ~2 px of quantization is immaterial -- while full-resolution labeling +
-    stats cost ~3 ms/frame on v5e.  ``sat_small``/``sat_labels`` (padded
+    ~2 px of quantization is immaterial, at 16x fewer pixels than full
+    resolution.  ``sat_small``/``sat_labels`` (padded
     lowres space, see _pool4_pad) come from the shared one-launch lowres
     labeling when the caller is detect_grid."""
     if sat is None:
@@ -601,8 +561,7 @@ def _bridge_angle_exp(
     scale: int = 1,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Median component orientation + per-pixel expandability gate for ONE
-    line mask: the n=1 view of _bridge_angle_exp_pair, so the XLA and Pallas
-    paths share a single gate/angle body and cannot diverge (A/B parity).
+    line mask: the n=1 view of _bridge_angle_exp_pair.
 
     The reference takes the median of per-contour PCA angles
     (ref expand_line_roi utils/util_cylinder.py:78-135) and skips contours
@@ -650,13 +609,15 @@ def _bridge_angle_exp_pair(
         # each value to the pooled block holding its root (the plain
         # flat == lin root test can never match after pooling).  Component
         # identity survives the pooling (distinct line masks sit > 2 small-px
-        # apart), the sel/onehot MXU passes shrink 4x, and second moments of
+        # apart), the sel/onehot matmuls shrink 4x, and second moments of
         # the block pattern approximate the pixel moments (the consumers are
         # a MEDIAN and px-scale threshold gates).  The full-res gate compare
         # below still uses the half-res labels against the value-space roots.
-        stats_labels = -jax.lax.reduce_window(
-            -labels, -jnp.int32(hgt * wdt), jax.lax.max, (1, 2, 2), (1, 2, 2),
-            "VALID",
+        # The 2x2 min is four strided slices: as an int32 reduce_window it
+        # returned wrong values on an H100 (labeling.window_extreme).
+        stats_labels = jnp.minimum(
+            jnp.minimum(labels[:, 0::2, 0::2], labels[:, 0::2, 1::2]),
+            jnp.minimum(labels[:, 1::2, 0::2], labels[:, 1::2, 1::2]),
         )
         stats_scale = 2.0
         min_area = 1
@@ -685,7 +646,7 @@ def _bridge_angle_exp_pair(
     # variance L^2/12 along its axis, so L = sqrt(12 * lambda_max).  This is
     # the reference's own measure (per-contour PCA endpoint length, ref
     # get_pca_endpoints utils/util_cylinder.py:35-55) and avoids the four
-    # (H*W, K) masked bbox reductions (measured 6.3 -> ~1.5 ms/frame).
+    # (H*W, K) masked bbox reductions.
     half_tr = 0.5 * (stats.mxx + stats.myy)
     half_df = 0.5 * (stats.mxx - stats.myy)
     lam_max = half_tr + jnp.sqrt(half_df * half_df + stats.mxy * stats.mxy)
@@ -699,8 +660,8 @@ def _bridge_angle_exp_pair(
     angle = jnp.where(jnp.isnan(med), 0.0, med) + base
     # Per-pixel expansion gate: short (broken) segments only.  The gate map
     # is built by comparing the label image against the K expandable roots
-    # ((HW, K) compare + any): a scatter-into-table + HW gather costs
-    # ~3.5 ms/frame on v5e, the compare form ~0.25 ms.
+    # ((HW, K) compare + any) instead of a scatter-into-table + HW gather
+    # (chosen for the first target accelerator; not measured on the GPU).
     if cfg.bridge_skip_long:
         # Exclude SPECKS (diag < bridge_min_len) from expansion and from the
         # long-frac reference maximum: the reference's size gate (ref
@@ -719,112 +680,6 @@ def _bridge_angle_exp_pair(
         exp_img = jnp.any(hit, axis=-1).reshape(n, hgt, wdt)
     else:
         exp_img = outs
-    return angle, exp_img
-
-
-# In-band line fragments tracked for the bridge's median angle on the
-# endpoint-stats path (compaction capacity; a half-res orientation mask
-# holds tens of fragments).
-_MEDIAN_CAP = 64
-
-
-def _bridge_angle_exp_endpoint_pair(
-    outs: jnp.ndarray,
-    pmin: jnp.ndarray,
-    pmax: jnp.ndarray,
-    cfg: DetectConfig,
-    scale: int = 1,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """_bridge_angle_exp_pair from per-component ENDPOINTS instead of
-    second moments -- no (H*W, K) one-hot reductions, no component capacity.
-
-    The payload-minmax CC kernel (pallas.frontend.component_payload_minmax)
-    gives every pixel its component's extreme pixels in a per-orientation
-    scan order: COLUMN-major for the near-horizontal mask (extremes =
-    leftmost/rightmost pixel) and row-major for the near-vertical one
-    (topmost/bottommost) -- the true segment endpoints even for curved
-    fragments, where plain row-major extremes would sit at a curve's apex.
-    The endpoint chord is the reference's own length measure (PCA endpoint
-    distance, ref get_pca_endpoints utils/util_cylinder.py:35-55) and its
-    direction the segment angle; the per-pixel expandability gate and the
-    component count become pure elementwise maps, and the global median
-    angle a counting binary search over the (unique) payload-min pixels.
-    Deviations from the moment form (chord vs PCA axis on curved fragments)
-    only nudge a MEDIAN and px-scale threshold gates; the 16-scene A/B
-    parity gate against the XLA moment chain is the equivalence check.
-
-    outs: (2, Hs, Ws) masks; pmin/pmax: per-pixel component payload extremes
-    (payload built by _bridge_pair: x*H+y for program 0, y*W+x for 1).
-    Returns (angles (2,), exp (2, Hs, Ws)).
-    """
-    n, hgt, wdt = outs.shape
-    hw = hgt * wdt
-    base = jnp.asarray([0.0, jnp.pi / 2], jnp.float32)
-    in_mask = pmin < hw
-    # >= 2 pixels <=> distinct extreme pixels (the half-res min_area=2 gate
-    # of the moment path; full-res min_area=4 has no exact endpoint
-    # equivalent -- the pallas bridge always labels at half res).
-    multi = in_mask & (pmax > pmin)
-    # Decode endpoints: program 0 payload is column-major (p = x*H + y),
-    # program 1 row-major (p = y*W + x).
-    x0 = jnp.stack([jnp.floor_divide(pmin[0], hgt), jnp.mod(pmin[1], wdt)]).astype(jnp.float32)
-    y0 = jnp.stack([jnp.mod(pmin[0], hgt), jnp.floor_divide(pmin[1], wdt)]).astype(jnp.float32)
-    x1 = jnp.stack([jnp.floor_divide(pmax[0], hgt), jnp.mod(pmax[1], wdt)]).astype(jnp.float32)
-    y1 = jnp.stack([jnp.mod(pmax[0], hgt), jnp.floor_divide(pmax[1], wdt)]).astype(jnp.float32)
-    dx = x1 - x0
-    dy = y1 - y0
-    ext = float(scale) * jnp.sqrt(dx * dx + dy * dy)
-    ang = jnp.arctan2(dy, dx)  # in [-pi, pi]; chord direction
-    ang = ang - base[:, None, None]
-    ang = jnp.arctan2(jnp.sin(ang), jnp.cos(ang))
-    ang = jnp.where(ang > jnp.pi / 2, ang - jnp.pi, ang)
-    ang = jnp.where(ang <= -jnp.pi / 2, ang + jnp.pi, ang)
-
-    pay = jnp.stack(
-        [
-            (jnp.arange(wdt, dtype=jnp.int32)[None, :] * hgt
-             + jnp.arange(hgt, dtype=jnp.int32)[:, None]),
-            (jnp.arange(hgt, dtype=jnp.int32)[:, None] * wdt
-             + jnp.arange(wdt, dtype=jnp.int32)[None, :]),
-        ]
-    )
-    is_root = in_mask & (pmin == pay)
-    band = (
-        multi & (ext >= cfg.bridge_min_len) & (ext <= cfg.bridge_max_len)
-    )
-    med_mask = is_root & band
-
-    def median_one(vals, mask):
-        # Compact the <= _MEDIAN_CAP in-band root angles to a small vector
-        # (one cumsum + one-hot MXU pass), sort that, and read the middle --
-        # nanmedian semantics: odd m -> middle element, even m -> mean of the
-        # two middles.  A counting binary search needs no capacity but costs
-        # ~60 serial full-image reduction steps (measured +0.2 ms/frame on
-        # v5e); fragments-in-band number tens, so a 64 cap loses nothing.
-        ridx, rvalid = labeling.compact_true_indices(mask, _MEDIAN_CAP)
-        m = jnp.sum(rvalid.astype(jnp.int32))
-        picked = jnp.where(
-            rvalid, vals[jnp.clip(ridx, 0, vals.shape[0] - 1)], jnp.inf
-        )
-        s = jnp.sort(picked)
-        k1 = jnp.maximum((m + 1) // 2 - 1, 0)
-        k2 = jnp.maximum(m // 2, 0)
-        v = 0.5 * (s[k1] + s[k2])
-        return jnp.where(m > 0, v, 0.0)
-
-    med = jax.vmap(median_one)(ang.reshape(n, -1), med_mask.reshape(n, -1))
-    angle = med + base
-
-    if cfg.bridge_skip_long:
-        sized = multi & (ext >= cfg.bridge_min_len)
-        max_ext = jnp.max(
-            jnp.where(sized, ext, 0.0).reshape(n, -1), axis=1
-        )  # (2,)
-        # Same speck-excluding expansion gate as the moment path (see
-        # _bridge_angle_exp_pair; ref utils/util_cylinder.py:168-170).
-        exp_img = sized & (ext <= cfg.bridge_long_frac * max_ext[:, None, None])
-    else:
-        exp_img = outs > 0.5 if outs.dtype != jnp.bool_ else outs
     return angle, exp_img
 
 
@@ -848,8 +703,8 @@ def _bridge(
     cfg: DetectConfig,
     pre_pooled: bool = False,
     probe_len: int | None = None,
-) -> jnp.ndarray:
-    """Bridge broken line segments along their direction -- XLA path
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Bridge broken line segments along their direction
     (ref expands_line_roi utils/util_cylinder.py:137-237).
 
     Per repeat: label components, take the *median* component orientation,
@@ -859,16 +714,12 @@ def _bridge(
 
     Labeling + component stats run at 1/label_downsample resolution (2x2
     max-pool): component identity survives pooling for line masks whose
-    spacing exceeds 2 px, the angle/extent statistics feed px-scale gates
-    where half-pixel quantization is immaterial, and the three labeling
-    stages are the detector's most expensive ops (4x fewer pixels).
+    spacing exceeds 2 px, and the angle/extent statistics feed px-scale
+    gates where half-pixel quantization is immaterial.
 
     ``pre_pooled``: the mask is ALREADY at label (half) resolution on the
-    padded canvas, and the morphology runs there too -- the XLA expression
-    of the shared half-res bridge algorithm (cfg.bridge_half_res); the
-    caller halves kernel/probe lengths.  Required for exact A/B parity with
-    the Pallas path now that bridging is active: a full-res XLA bridge and a
-    half-res Pallas bridge legitimately produce different masks.
+    padded canvas, and the morphology runs there too (cfg.bridge_half_res);
+    the caller halves kernel/probe lengths.
 
     Returns (bridged_mask, median_component_angle) -- the angle feeds the
     steep-diagonal stability fence (DetectResult.max_line_tilt)."""
@@ -877,15 +728,12 @@ def _bridge(
     probe = cfg.endpoint_probe_len if probe_len is None else probe_len
     out = mask
     angle = jnp.asarray(base_angle, jnp.float32)
-    n_pre = jnp.int32(0)
-    for rep in range(cfg.bridge_repeats):
+    for _ in range(cfg.bridge_repeats):
         if pre_pooled:
             small = out
         else:
             small = _pool2_pad(out) if ds == 2 else out
-        labels = _cc(small, cfg.cc_iters // 2, cfg, frac=1.0)
-        if rep == 0:
-            n_pre = _n_components(small, labels)
+        labels = labeling.connected_components(small, iters=cfg.cc_iters // 2)
         angle, exp_img = _bridge_angle_exp(small, labels, base_angle, cfg, scale=ds)
         if ds == 2 and not pre_pooled:
             exp_img = _upsample2(exp_img, h_img, w_img)
@@ -895,7 +743,7 @@ def _bridge(
         grown = morphology.dilate_line(endpoints, angle, max_kernel_len, kernel_len)
         grown = morphology.dilate_rect(grown, 3, 3)  # give the line thickness
         out = out | (morphology.erode_rect(out | grown, 3, 3) & grown)
-    return out, angle, n_pre
+    return out, angle
 
 
 def _bridge_pair(
@@ -904,161 +752,33 @@ def _bridge_pair(
     kernel_len: jnp.ndarray,
     max_kernel_len: int,
     cfg: DetectConfig,
-) -> Tuple[jnp.ndarray, jnp.ndarray, Optional[jnp.ndarray], jnp.ndarray]:
+) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Bridge the h/v line-mask pair.
 
-    Returns (h_bridged, v_bridged, warm_labels, angles): warm_labels is the
-    (2, Hs, Ws) pre-bridge fragment labeling from the bridge's own stats CC
-    (Pallas default path only, else None) -- a valid warm start for the final
-    labels CC, since bridging only ADDS mask pixels and min-propagation's
-    fixpoint is start-independent (see pallas connected_components
-    ``init_labels``).  angles is the (2,) [h, v] median component orientation
-    from the last bridge repeat; it feeds the steep-diagonal stability fence
-    (DetectResult.max_line_tilt).
+    Returns (h_bridged, v_bridged, angles): angles is the (2,) [h, v] median
+    component orientation from the last bridge repeat; it feeds the
+    steep-diagonal stability fence (DetectResult.max_line_tilt).
 
-    Pallas path: one batched CC launch for both masks, then ONE fused VMEM
-    bridge-morphology kernel (probes + oriented dilation + 3x3 open) for the
-    pair -- replacing ~40 HBM-bound XLA shift passes per mask.  XLA path:
-    the portable per-mask _bridge.
-
-    Under bridge_half_res (+ label_downsample 2) BOTH paths run the SAME
-    half-res algorithm -- pooled masks, halved kernel reach and probe --
-    and return masks on the half-res padded canvas (their only consumer is
-    the half-res labeling CC).  One algorithm, two backends: anything else
-    makes the A/B parity gate compare two different bridges."""
-    half_shared = cfg.label_downsample == 2 and cfg.bridge_half_res
-
-    if not cfg.use_pallas:
-        if half_shared:
-            kl = kernel_len / 2.0
-            mk = max(max_kernel_len // 2, 1)
-            pr = max(2, (cfg.endpoint_probe_len + 1) // 2)
-            ph, pv = _pool2_pad(mh), _pool2_pad(mv)
-            h_out, h_ang, h_pre = _bridge(ph, 0.0, kl, mk, cfg,
-                                          pre_pooled=True, probe_len=pr)
-            v_out, v_ang, v_pre = _bridge(pv, jnp.pi / 2, kl, mk, cfg,
-                                          pre_pooled=True, probe_len=pr)
-            # pre_converged placeholder: the XLA path recounts the pre masks
-            # at the full cc_iters budget at the final-CC site (exact there)
-            return (h_out, v_out, None, jnp.stack([h_ang, v_ang]),
-                    h_pre + v_pre, jnp.bool_(True))
-        h_out, h_ang, h_pre = _bridge(mh, 0.0, kernel_len, max_kernel_len, cfg)
-        v_out, v_ang, v_pre = _bridge(mv, jnp.pi / 2, kernel_len,
-                                      max_kernel_len, cfg)
-        return (h_out, v_out, None, jnp.stack([h_ang, v_ang]),
-                h_pre + v_pre, jnp.bool_(True))
-    from cylinder_pose_estimation_tpu.ops.pallas.frontend import (
-        bridge_morphology,
-        connected_components as cc_pallas,
-    )
-
-    h_img, w_img = mh.shape
-    ds = cfg.label_downsample
-    masks = jnp.stack([mh, mv])
-    rounds = max(1, int(cfg.pallas_cc_rounds_prebridge))
-    half = ds == 2 and cfg.bridge_half_res
-    probe_len = cfg.endpoint_probe_len
-    if half:
+    Under bridge_half_res (+ label_downsample 2) the whole bridge runs at
+    half resolution -- pooled masks, halved kernel reach and probe -- and
+    returns masks on the half-res padded canvas (their only consumer is the
+    half-res labeling CC)."""
+    if cfg.label_downsample == 2 and cfg.bridge_half_res:
         # Halve the endpoint probe with the kernel: the probe counts mask
-        # pixels within probe_len ALONG the mask's own resolution, so an
-        # unscaled probe would reach 2x the full-res XLA path's distance and
-        # see "more line ahead" across exactly the gaps bridging targets.
-        probe_len = max(2, (cfg.endpoint_probe_len + 1) // 2)
-        # Run the ENTIRE bridge at label resolution: the bridged masks are
-        # only ever consumed through the half-res labeling CC (labels are
-        # grouping keys for the joint centroids), so bridging the pooled
-        # masks with a halved kernel reach connects the same fragments at a
-        # quarter of the morphology-kernel cost -- the dominant bridge item
-        # (0.34 of 0.63 ms/frame(2v), job 012).  The 16-scene A/B parity
-        # gate against the full-res XLA chain is the equivalence check.
-        masks = jnp.stack([_pool2_pad(masks[0]), _pool2_pad(masks[1])])
-        kernel_len = kernel_len / 2.0
-        max_kernel_len = max(max_kernel_len // 2, 1)
-    n_pre = jnp.int32(0)
-    # bridge_repeats=0 counts nothing -> bridged_components is identically 0
-    # and exact; the endpoint_stats branch never checks its labeling's
-    # fixpoint -> claim conservative there.
-    pre_converged = jnp.bool_(cfg.bridge_repeats == 0)
-    endpoint_stats = cfg.bridge_endpoint_stats
-    if endpoint_stats:
-        from cylinder_pose_estimation_tpu.ops.pallas.frontend import (
-            component_payload_minmax,
-        )
-    warm_labels = None
-    # bridge_repeats=0 is a valid config (tests exercise it on the XLA
-    # path): keep the base axis angles so the final stack stays defined,
-    # mirroring the XLA path's `angle = base_angle` init.
-    angle_h, angle_v = jnp.float32(0.0), jnp.float32(jnp.pi / 2)
-    for rep in range(cfg.bridge_repeats):
-        small = (
-            jnp.stack([_pool2_pad(masks[0]), _pool2_pad(masks[1])])
-            if ds == 2 and not half
-            else masks
-        )
-        if endpoint_stats:
-            hs, ws = small.shape[-2:]
-            pay = jnp.stack(
-                [
-                    (jnp.arange(ws, dtype=jnp.int32)[None, :] * hs
-                     + jnp.arange(hs, dtype=jnp.int32)[:, None]),
-                    (jnp.arange(hs, dtype=jnp.int32)[:, None] * ws
-                     + jnp.arange(ws, dtype=jnp.int32)[None, :]),
-                ]
-            )
-            pmin, pmax = component_payload_minmax(
-                small, pay, rounds=rounds, interpret=cfg.pallas_interpret
-            )
-            if rep == 0:
-                # one pixel per component attains its scan-order payload min
-                n_pre = jnp.sum(small & (pay == pmin)).astype(jnp.int32)
-            (angle_h, angle_v), (exp_h, exp_v) = _bridge_angle_exp_endpoint_pair(
-                small.astype(jnp.float32), pmin, pmax, cfg, scale=ds
-            )
-        else:
-            labels = cc_pallas(
-                small, rounds=rounds,
-                pools_per_round=cfg.pallas_cc_pools,
-                interpret=cfg.pallas_interpret,
-            )
-            warm_labels = labels
-            if rep == 0:
-                n_pre = _n_components(small, labels)
-                # Exact fixpoint check of THIS labeling (one masked 3x3
-                # min-pool): when it holds, n_pre is the exact pre-bridge
-                # component count; when not, n_pre overcounts (conservative).
-                # Cheaper by ~0.13 ms/frame than recounting the pre masks at
-                # the final CC budget (measured r5: the 4-mask final launch
-                # cost 0.176 vs 0.046 ms/frame for the pair).
-                lab_m = jnp.where(
-                    small, labels.astype(jnp.int32), jnp.iinfo(jnp.int32).max
-                )
-                neigh = -jax.lax.reduce_window(
-                    -lab_m,
-                    -jnp.iinfo(jnp.int32).max,
-                    jax.lax.max,
-                    (1, 3, 3),
-                    (1, 1, 1),
-                    "SAME",
-                )
-                pre_converged = ~jnp.any(small & (neigh < lab_m))
-            (angle_h, angle_v), (exp_h, exp_v) = _bridge_angle_exp_pair(
-                small, labels, cfg, scale=ds
-            )
-        if ds == 2 and not half:
-            exp_h = _upsample2(exp_h, h_img, w_img)
-            exp_v = _upsample2(exp_v, h_img, w_img)
-        bridged = bridge_morphology(
-            masks.astype(jnp.float32),
-            jnp.stack([exp_h, exp_v]).astype(jnp.float32),
-            jnp.stack([angle_h, angle_v]),
-            jnp.asarray(kernel_len, jnp.float32),
-            probe_len=probe_len,
-            max_kernel=max_kernel_len,
-            interpret=cfg.pallas_interpret,
-        )
-        masks = bridged > 0.5
-    return (masks[0], masks[1], warm_labels, jnp.stack([angle_h, angle_v]),
-            n_pre, pre_converged)
+        # pixels within probe_len along the mask's own resolution, so an
+        # unscaled probe would reach twice as far and see "more line ahead"
+        # across exactly the gaps bridging targets.
+        kl = kernel_len / 2.0
+        mk = max(max_kernel_len // 2, 1)
+        pr = max(2, (cfg.endpoint_probe_len + 1) // 2)
+        h_out, h_ang = _bridge(_pool2_pad(mh), 0.0, kl, mk, cfg,
+                               pre_pooled=True, probe_len=pr)
+        v_out, v_ang = _bridge(_pool2_pad(mv), jnp.pi / 2, kl, mk, cfg,
+                               pre_pooled=True, probe_len=pr)
+    else:
+        h_out, h_ang = _bridge(mh, 0.0, kernel_len, max_kernel_len, cfg)
+        v_out, v_ang = _bridge(mv, jnp.pi / 2, kernel_len, max_kernel_len, cfg)
+    return h_out, v_out, jnp.stack([h_ang, v_ang])
 
 
 def _assign_labels(
@@ -1078,15 +798,11 @@ def _assign_labels(
     xi = jnp.clip((cents[:, 0] / scale).astype(jnp.int32), 1, w - 2)
     yi = jnp.clip((cents[:, 1] / scale).astype(jnp.int32), 1, h - 2)
     # 3x3-tolerant label lookup as a dense separable 3x3 min THEN one gather
-    # per centroid: scattered-point gathers are the slow op on TPU (the image
-    # passes are bandwidth-trivial), so shrinking 9 taps to 1 wins 9x on the
-    # gather count with identical semantics (min over the 3x3 neighborhood).
-    m3 = jax.lax.reduce_window(
-        label_img, jnp.int32(hw), jax.lax.min, (3, 1), (1, 1), "SAME"
-    )
-    m3 = jax.lax.reduce_window(
-        m3, jnp.int32(hw), jax.lax.min, (1, 3), (1, 1), "SAME"
-    )
+    # per centroid: 9 taps become 1 gather with identical semantics (min
+    # over the 3x3 neighborhood); the form was chosen for the first target
+    # accelerator, where scattered-point gathers were slow.
+    m3 = labeling.window_extreme(label_img, 3, 1, jnp.int32(hw))
+    m3 = labeling.window_extreme(m3, 1, 3, jnp.int32(hw))
     best = m3.reshape(-1)[yi * w + xi]
     assigned = cvalid & (best < hw)
     roots = jnp.where(assigned, best, hw)
@@ -1094,8 +810,8 @@ def _assign_labels(
     # scan order: with more components than capacity, small clutter fragments
     # must not evict true grid lines.  Dominance counting over the (P, P)
     # compare matrix replaces the previous 3-sorts + argsort + searchsorted
-    # formulation: P ~ 512, so every step is a cheap VPU reduction while
-    # each 512-sort is ~10 latency-bound sorting-network stages.
+    # formulation (P ~ 512; chosen for the first target accelerator, where
+    # sorts were slow).
     p = roots.shape[0]
     pos = jnp.arange(p, dtype=jnp.int32)
     eq = (roots[:, None] == roots[None, :]) & assigned[None, :]  # (P, P)
@@ -1160,7 +876,7 @@ def _fit_label_polys_pair(
 
     Same math as two _fit_label_polys calls (rows: y=f(x), cols: x=g(y))
     but a single masked_polyfit/poly_domain launch -- the solves are tiny,
-    so one launch of 48 beats two of 24 on dispatch."""
+    so one batched solve of 48 replaces two of 24."""
     r, c = cfg.max_rows, cfg.max_cols
     x, y = cents[:, 0], cents[:, 1]
     w_r = ((row_of[None, :] == jnp.arange(r)[:, None]) & row_ok[None, :]).astype(x.dtype)
@@ -1235,8 +951,9 @@ def _rank_by(key: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     """Dense rank of valid entries by key (invalid sink to the end).
 
     Dominance counting over the (N, N) compare matrix -- N is a label
-    capacity (~24), so this is 3 vector ops where a stable argsort +
-    scatter costs ~25 latency-bound sorting-network stages."""
+    capacity (~24), so this is 3 vector ops in place of a stable argsort +
+    scatter (chosen for the first target accelerator, where sorts were
+    slow)."""
     k = jnp.where(valid, key, jnp.inf)
     n = k.shape[0]
     ar = jnp.arange(n)
@@ -1257,113 +974,39 @@ def detect_grid(
     dtype = jnp.float32 if cfg.image_dtype == "float32" else jnp.bfloat16
     gray = _to_gray(image, jnp.float32)
 
-    # 1.-2. preprocess / binarize + line openings + joints.  The Pallas path
-    # fuses all of it into one VMEM-resident kernel (~0.06 ms/frame on v5e vs
-    # tens of ms of HBM-bound XLA passes); the XLA path is the portable
-    # reference implementation.
-    if cfg.use_pallas:
-        from cylinder_pose_estimation_tpu.ops.pallas.frontend import (
-            preprocess_binarize,
-        )
-
-        # Checked against the ACTUAL image (cfg.height/width are advisory
-        # for capacity sizing; every stage reads gray.shape).  Mosaic
-        # handles sub-128 lane alignment via relayouts (240x320 is tested),
-        # but sublane (8) alignment is required and full (8, 128) tiling is
-        # the fast path.
-        assert (
-            gray.shape[0] % 8 == 0 and gray.shape[1] % 8 == 0
-        ), (
-            f"pallas front-end needs 8-aligned image shapes, got {gray.shape}"
-        )
-        if getattr(cfg, "smooth_mxu", False):
-            # Composed Gaussian(blur) o Gaussian(ridge_sigma) as banded MXU
-            # matmuls (exact mode): moves the kernel's largest VPU roll
-            # chain (~100 shift+FMA passes/view) onto the matrix unit.
-            # Border semantics change from circular wrap to zero padding.
-            # Influence propagates ~23 px (smoothing radius 14 + gradient 2
-            # + sauvola_window/2 = 7) vs border_margin 20, so a ~3 px band
-            # of kept binarization can differ between this path and the
-            # in-kernel smoothing -- accepted, same class as the
-            # pre-existing wrap-vs-XLA border discrepancy (the band holds
-            # no grid content on any bench scene; raising the margin would
-            # change detection near edges instead).
-            from cylinder_pose_estimation_tpu.ops import mxu_conv as mxc
-
-            ct = mxc.compose_taps(
-                mxc.gauss_taps_cv(cfg.blur_ksize),
-                mxc.gauss_taps_scipy(cfg.ridge_sigma),
-            )
-            # Column conv as a row conv of the transpose: conv_y's
-            # amat @ img form puts a vmapped batch axis at dim 1, which the
-            # downstream pallas_call's block specs reject; img @ bmat keeps
-            # it leading.  Taps are symmetric, so orientation is moot.
-            kin = mxc.conv_x(gray, mxc.x_mat(ct, gray.shape[1], exact=True),
-                             exact=True)
-            kin = mxc.conv_x(
-                kin.T, mxc.x_mat(ct, gray.shape[0], exact=True), exact=True
-            ).T
-        else:
-            kin = gray
-        b_f, h_f, v_f, j_f, joint_cnt, joint_peak = preprocess_binarize(
-            kin,
-            pre_smoothed=getattr(cfg, "smooth_mxu", False),
-            blur_ksize=cfg.blur_ksize,
-            ridge_sigma=cfg.ridge_sigma,
-            sauvola_window=cfg.sauvola_window,
-            sauvola_k=cfg.sauvola_k,
-            sauvola_r=cfg.sauvola_r,
-            min_contrast=0.05,
-            line_len=cfg.line_kernel_len,
-            margin=_border_margin(cfg),
-            joint_peak_iters=cfg.joint_peak_iters,
-            interpret=cfg.pallas_interpret,
-        )
-        binary = b_f > 0.5
-        h_mask = h_f > 0.5
-        v_mask = v_f > 0.5
-        joints = j_f > 0.5
-        sat_mask, bright_center, bright_blur, joint_cx, joint_cy = (
-            _stats_images(gray, j_f, joint_cnt, cfg)
-        )
-        joint_pre = (joint_peak, joint_cx, joint_cy)
-    else:
-        blurred = gaussian_blur_cv(gray.astype(dtype), cfg.blur_ksize)
-        binary = binarize_ridges(
-            blurred.astype(jnp.float32),
-            cfg.ridge_sigma,
-            cfg.sauvola_window,
-            cfg.sauvola_k,
-            cfg.sauvola_r,
-            min_contrast=0.05,
-        )
-        # Same border-margin band as the Pallas kernel (_border_margin) so
-        # the two paths agree bit-for-bit at image edges.  The reference's
-        # own border ridges are constant-padding artifacts that its blob ROI
-        # discards (NEXT.md known deviations); blessing the margin as the spec
-        # makes A/B parity exact instead of "exact except border scenes".
-        mrg = _border_margin(cfg)
-        rr = jnp.arange(gray.shape[0])[:, None]
-        cc = jnp.arange(gray.shape[1])[None, :]
-        inside = (
-            (rr >= mrg) & (rr < gray.shape[0] - mrg)
-            & (cc >= mrg) & (cc < gray.shape[1] - mrg)
-        )
-        binary = binary & inside
-        h_mask = morphology.open_rect(binary, 1, cfg.line_kernel_len)
-        v_mask = morphology.open_rect(binary, cfg.line_kernel_len, 1)
-        joints = h_mask & v_mask
-        # Statistic images + joint peaks: the IDENTICAL shared MXU-matmul /
-        # key-propagation math the Pallas branch uses (A/B path parity for
-        # these images holds by construction; the box count is exact integer
-        # arithmetic on every formulation).
-        jf = joints.astype(jnp.float32)
-        joint_cnt = box_filter(jf, 11, mode="constant", normalize=False)
-        joint_peak = _joint_peaks(joints, joint_cnt, cfg.joint_peak_iters)
-        sat_mask, bright_center, bright_blur, joint_cx, joint_cy = (
-            _stats_images(gray, jf, joint_cnt, cfg)
-        )
-        joint_pre = (joint_peak.astype(jnp.float32), joint_cx, joint_cy)
+    # 1.-2. preprocess / binarize + line openings + joints.
+    blurred = gaussian_blur_cv(gray.astype(dtype), cfg.blur_ksize)
+    binary = binarize_ridges(
+        blurred.astype(jnp.float32),
+        cfg.ridge_sigma,
+        cfg.sauvola_window,
+        cfg.sauvola_k,
+        cfg.sauvola_r,
+        min_contrast=0.05,
+    )
+    # Border-margin band (_border_margin): the reference's own border ridges
+    # are constant-padding artifacts that its blob ROI discards (PARITY.md,
+    # known deviations); the margin is the spec here.
+    mrg = _border_margin(cfg)
+    rr = jnp.arange(gray.shape[0])[:, None]
+    cc = jnp.arange(gray.shape[1])[None, :]
+    inside = (
+        (rr >= mrg) & (rr < gray.shape[0] - mrg)
+        & (cc >= mrg) & (cc < gray.shape[1] - mrg)
+    )
+    binary = binary & inside
+    h_mask = morphology.open_rect(binary, 1, cfg.line_kernel_len)
+    v_mask = morphology.open_rect(binary, cfg.line_kernel_len, 1)
+    joints = h_mask & v_mask
+    # Statistic images + joint peaks (the box count is exact integer
+    # arithmetic).
+    jf = joints.astype(jnp.float32)
+    joint_cnt = box_filter(jf, 11, mode="constant", normalize=False)
+    joint_peak = _joint_peaks(joints, joint_cnt, cfg.joint_peak_iters)
+    sat_mask, bright_center, bright_blur, joint_cx, joint_cy = (
+        _stats_images(gray, jf, joint_cnt, cfg)
+    )
+    joint_pre = (joint_peak.astype(jnp.float32), joint_cx, joint_cy)
     # Profiling probes (cfg.stage_probe, static): return a scalar that
     # depends on everything computed so far; consecutive-stage timing diffs
     # give the per-stage cost without duplicating the pipeline in a harness.
@@ -1379,16 +1022,11 @@ def detect_grid(
     if cfg.stage_probe == "centroids":
         return _probe(cents, cvalid)
 
-    # 3.+5a. ROI + saturation-blob labeling share ONE lowres CC launch: the
-    # detector needs exactly two quarter-res labelings per image, and separate
-    # scan-CC calls cost ~0.6 ms/frame each on v5e (launch-bound).
+    # 3.+5a. ROI + saturation-blob labeling share ONE batched lowres CC: the
+    # detector needs exactly two quarter-res labelings per image.
     if cfg.mode == "cylinder":
         # One stacked pooling op for the saturation blob and the ROI seed
-        # (bit-identical to two _pool4_pad calls).  Measured on chip: NO
-        # throughput change (1277.9 -> 1275.3 fps, within noise) -- under
-        # the B=32 vmap the pools were never launch-bound, which also bounds
-        # the priced "fold the seed into the preprocess kernel" idea at the
-        # mask re-read HBM traffic (~us/frame); see PERF_FLOOR.md r5.
+        # (bit-identical to two _pool4_pad calls).
         pooled = _pool4_pad(jnp.stack([sat_mask, h_mask | v_mask]))
         sat_small = pooled[0]
         roi_seed4 = morphology.dilate_rect(pooled[1], 9, 9)
@@ -1434,8 +1072,7 @@ def detect_grid(
     # 6a. bridge lines
     kernel_len = jnp.asarray(cfg.bridge_kernel_base, jnp.float32) + circle_radius0
     max_kernel = cfg.bridge_kernel_base + 160
-    (h_exp, v_exp, warm_labels, bridge_angles, n_pre_components,
-     pre_cc_converged) = _bridge_pair(mh, mv, kernel_len, max_kernel, cfg)
+    h_exp, v_exp, bridge_angles = _bridge_pair(mh, mv, kernel_len, max_kernel, cfg)
     if cfg.stage_probe == "bridge":
         return _probe(cents, inside, h_exp, v_exp)
     if cfg.stage_probe == "bridge_state":
@@ -1454,147 +1091,61 @@ def detect_grid(
             "gray": gray,
         }
 
-    # 6b. label rows/cols and assign centroids (one batched launch on Pallas;
-    # labeling at 1/label_downsample resolution -- labels are only grouping
-    # keys for the centroids, and 2x2 pooling preserves component identity
-    # for line masks spaced > 2 px apart)
+    # 6b. label rows/cols and assign centroids (labeling at
+    # 1/label_downsample resolution -- labels are only grouping keys for the
+    # centroids, and 2x2 pooling preserves component identity for line masks
+    # spaced > 2 px apart)
     ds = cfg.label_downsample
     if ds == 2 and not cfg.bridge_half_res:
         hv_masks = jnp.stack([_pool2_pad(h_exp), _pool2_pad(v_exp)])
     else:
         # bridge_half_res: _bridge_pair already returned masks on the
-        # half-res padded canvas (BOTH paths); label them directly.
+        # half-res padded canvas; label them directly.
         hv_masks = jnp.stack([h_exp, v_exp])
-    # NOTE: labeling at QUARTER resolution (one more 2x2 pool) was measured
-    # on TPU and rejected: it loses grid points (24/32 on 5 of 16 bench
-    # scenes -- thin lines vanish under the second pool) for only ~0.04
-    # ms/view.  Half-res is the floor for the final labeling CC.
+    # NOTE: labeling at QUARTER resolution (one more 2x2 pool) was tried and
+    # rejected: it loses grid points (24/32 on 5 of 16 bench scenes -- thin
+    # lines vanish under the second pool).  Half-res is the floor for the
+    # final labeling CC.
     assign_scale = ds
-    # Pre-bridge masks on the SAME canvas as hv_masks (XLA path only):
-    # recounted below at the full cc_iters budget so bridged_components is
-    # exact (ADVICE r4).  The Pallas path instead checks the bridge's rep-0
-    # labeling for its min-propagation fixpoint EXACTLY (one 3x3 min-pool in
-    # _bridge_pair): when converged -- every bench/golden scene -- its count
-    # is already exact; when not, the count is a conservative overcount and
-    # the frame reads bridged > 0, which only widens the contract's excused
-    # set.  A full recount launch was measured at +0.13 ms/frame (r5) -- too
-    # expensive for a diagnostic.  Skipped when bridge_repeats == 0.
-    recount_pre = cfg.bridge_repeats > 0 and not cfg.use_pallas
-    if recount_pre:
+    h_labels = labeling.connected_components(hv_masks[0], iters=cfg.cc_iters)
+    v_labels = labeling.connected_components(hv_masks[1], iters=cfg.cc_iters)
+    # Pre-bridge masks on the SAME canvas as hv_masks, labeled at the full
+    # cc_iters budget so bridged_components is exact.
+    n_pre_components = jnp.int32(0)
+    if cfg.bridge_repeats > 0:
         pre_masks = (
             jnp.stack([_pool2_pad(mh), _pool2_pad(mv)])
             if ds == 2
             else jnp.stack([mh, mv])
         )
-    if cfg.use_pallas:
-        from cylinder_pose_estimation_tpu.ops.pallas.frontend import (
-            connected_components as cc_pallas,
+        pre_lab = jnp.stack(
+            [labeling.connected_components(pre_masks[0], iters=cfg.cc_iters),
+             labeling.connected_components(pre_masks[1], iters=cfg.cc_iters)]
         )
-
-        # Warm start from the bridge's pre-bridge fragment labels when they
-        # live on the same canvas as the final masks (always true under the
-        # default bridge_half_res; bridging only ADDS pixels, so the labels
-        # are a valid partial min-propagation state -- see pallas
-        # connected_components ``init_labels``).
-        warm = (
-            getattr(cfg, "cc_warm_start", False)
-            and warm_labels is not None
-            and warm_labels.shape == hv_masks.shape
-        )
-        cc_rounds = (
-            max(1, int(getattr(cfg, "pallas_cc_rounds_warm", 1)))
-            if warm
-            else max(1, int(cfg.pallas_cc_rounds))
-        )
-        init = warm_labels if warm else None
-        cap = int(getattr(cfg, "pallas_cc_cross_cap", 0))
-        if cap > 0:
-            # Orientation-aware scan caps: the h-mask's contiguous runs
-            # along y (and the v-mask's along x) are line-thickness px, so
-            # the perpendicular segmented scan stops at ``cap`` instead of
-            # log2(axis) doubling.  Two slim launches (the caps differ per
-            # mask, so the pair can't share one grid); the extra launch is
-            # ~0.3 us/view amortized over the vmapped frame batch.
-            h_labels = cc_pallas(
-                hv_masks[0],
-                rounds=cc_rounds,
-                pools_per_round=cfg.pallas_cc_pools,
-                cap_axis=0, cap=cap,
-                interpret=cfg.pallas_interpret,
-                init_labels=None if init is None else init[0],
-            )
-            v_labels = cc_pallas(
-                hv_masks[1],
-                rounds=cc_rounds,
-                pools_per_round=cfg.pallas_cc_pools,
-                cap_axis=1, cap=cap,
-                interpret=cfg.pallas_interpret,
-                init_labels=None if init is None else init[1],
-            )
-        else:
-            hv_labels = cc_pallas(
-                hv_masks,
-                rounds=cc_rounds,
-                pools_per_round=cfg.pallas_cc_pools,
-                interpret=cfg.pallas_interpret,
-                init_labels=init,
-            )
-            h_labels, v_labels = hv_labels[0], hv_labels[1]
-    else:
-        h_labels = _cc(hv_masks[0], cfg.cc_iters, cfg)
-        v_labels = _cc(hv_masks[1], cfg.cc_iters, cfg)
-        if recount_pre:
-            pre_lab = jnp.stack(
-                [_cc(pre_masks[0], cfg.cc_iters, cfg),
-                 _cc(pre_masks[1], cfg.cc_iters, cfg)]
-            )
-            n_pre_components = _n_components(pre_masks, pre_lab)
+        n_pre_components = _n_components(pre_masks, pre_lab)
     if cfg.stage_probe == "labels":
         return _probe(cents, inside, h_labels, v_labels)
     # Convergence diagnostic (exact): min-propagation labeling is at its
     # fixpoint iff no mask pixel has an 8-neighbor (within the mask) holding
-    # a smaller label -- one masked 3x3 min-pool + compare.  Detects the
-    # under-converged CC regime of steep-diagonal scenes (NEXT.md job 019)
-    # on BOTH backends; feeds DetectResult.stable.
+    # a smaller label.  Detects the under-converged CC regime of
+    # steep-diagonal scenes (PARITY.md, known deviations); feeds
+    # DetectResult.stable.
     lab_pair = jnp.stack([h_labels, v_labels]).astype(jnp.int32)
-    masked_lab = jnp.where(hv_masks, lab_pair, jnp.iinfo(jnp.int32).max)
-    neigh_min = -jax.lax.reduce_window(
-        -masked_lab,
-        -jnp.iinfo(jnp.int32).max,
-        jax.lax.max,
-        (1, 3, 3),
-        (1, 1, 1),
-        "SAME",
-    )
-    labels_converged = ~jnp.any(hv_masks & (neigh_min < lab_pair))
+    labels_converged = labeling.fixpoint_residual(lab_pair, hv_masks) == 0
     # Bridging observability (DetectResult.bridged_components): components
     # merged by line bridging = pre-bridge fragment count minus the final
     # post-bridge count (both from min-linear-index labelings on the same
-    # half-res canvas).  Exactness: the XLA path recounts the pre masks at
-    # the full cc_iters budget (exact always); the Pallas path uses the
-    # bridge's rep-0 count, whose fixpoint is verified EXACTLY in
-    # _bridge_pair -- exact whenever pre_cc_converged (all bench/golden
-    # scenes), a conservative overcount otherwise (which only widens the
-    # contract's excused set; full recount measured +0.13 ms/frame, r5).
-    # The non-default endpoint_stats / cross_cap paths stay conservative.
-    # End-of-line
+    # half-res canvas, at the same cc_iters budget).  End-of-line
     # extensions -- which bridging performs on EVERY scene -- do not merge
-    # components, so this is 0 exactly when no gap was closed.  The
-    # backend-agreement contract (randomized sweep, two tiers): 0 -> id
-    # SETS equal across backends; 0 AND axis-aligned (max_line_tilt <= ~2
-    # deg) -> positions exact too.  At non-axis angles the two bridge
-    # implementations' oriented morphology footprints may differ by one
-    # discretization pixel, which can perturb an outer column's polynomial
-    # by ~1 px without changing any id (r5 sweep seed 10).
+    # components, so this is 0 exactly when no gap was closed.
     # bridge_repeats=0 leaves n_pre=0 -> clamped to 0.
     n_post_components = _n_components(hv_masks, lab_pair)
     bridged_components = jnp.maximum(n_pre_components - n_post_components, 0)
     if cfg.max_rows == cfg.max_cols:
-        # Rows + cols in ONE vmapped launch: _assign_labels is ~15 small
-        # latency-bound (P, P) reductions, so two sequential calls pay twice
-        # the dispatch for the same arithmetic.  vmap over the stacked label
-        # pair is numerically identical (every op is elementwise over the
-        # pair axis).
+        # Rows + cols in ONE vmapped call: _assign_labels is ~15 small
+        # (P, P) reductions.  vmap over the stacked label pair is
+        # numerically identical (every op is elementwise over the pair
+        # axis).
         rc_of, rc_ok, _ = jax.vmap(
             lambda li: _assign_labels(
                 li, cents, inside, cfg.max_rows, scale=assign_scale
@@ -1736,7 +1287,7 @@ def detect_grid(
     # The bounds follow the reference's slice [int(x-h), int(x+h)) --
     # truncation, EXCLUSIVE upper, clipped area in the divisor -- via a
     # traced-range band-matmul rectangle mean (no static tap size can
-    # express a traced half; no TPU gather either).  r5 change: the old
+    # express a traced half; no gather either).  r5 change: the old
     # static composed-taps patch deviated on large-blob scenes (documented
     # deviation now closed; pinned by the bookkeeping oracle's literal rule).
     from cylinder_pose_estimation_tpu.ops import mxu_conv as mxc
@@ -1748,12 +1299,6 @@ def detect_grid(
             jnp.floor(circle_radius0 / 5.0), float(cfg.patch_half_min)
         )
         half_b = jnp.where(half_b > 10.0, half_b + 5.0, half_b)
-    if bright_blur is None:
-        gk = mxc.gauss_taps_cv(cfg.index_blur_ksize)
-        bright_blur = mxc.conv_y(
-            mxc.conv_x(gray, mxc.x_mat(gk, gray.shape[1])),
-            mxc.y_mat(gk, gray.shape[0]),
-        )
     xf = xi.reshape(-1)
     yf = yi.reshape(-1)
     x0b = jnp.clip(jnp.floor(xf - half_b), 0, gray.shape[1]).astype(jnp.int32)
@@ -1805,7 +1350,7 @@ def detect_grid(
     # on garbage with ok=True.
     ok = jnp.sum(accept) >= cfg.min_ok_points
 
-    # Stability fence (NEXT.md job 019): median |line tilt| from the grid
+    # Stability fence (PARITY.md, known deviations): median |line tilt| from the grid
     # axes, from the fitted polynomials' slopes at their domain midpoints.
     # Rows are y=f(x) (tilt from horizontal), cols x=g(y) (tilt from
     # vertical); the chaotic regime is steep diagonals on BOTH families.

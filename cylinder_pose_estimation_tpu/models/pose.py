@@ -5,7 +5,7 @@ The numerically load-bearing sequence (SURVEY.md §3.4):
     -> cyl_params_to_transform
 as one jittable function of two GridPoints + StereoParams.  vmap over a frame
 axis turns the reference's serial per-image MATLAB loop
-(ref exp_gridDetection.m:78-81) into one batched TPU program.
+(ref exp_gridDetection.m:78-81) into one batched program.
 """
 
 from __future__ import annotations

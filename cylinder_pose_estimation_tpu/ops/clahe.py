@@ -6,7 +6,7 @@ Replaces both CLAHE call sites in the reference:
   * MATLAB adapthisteq in stereo preprocessing (ref utils/preProcessing.m:17-18;
     defaults: 8x8 tiles, normalized clip 0.01, 256 bins, uniform).
 
-TPU shape: per-tile 256-bin histograms via one segment_sum over
+Batched shape: per-tile 256-bin histograms via one segment_sum over
 (tiles * 256) segments (small segment space -> cheap scatter), single-pass
 clip + uniform redistribution of the excess, per-tile CDF, then bilinear
 interpolation between the four surrounding tile mappings per pixel (the

@@ -3,8 +3,8 @@
 These replace the cv2 filter primitives the reference leans on
 (cv2.GaussianBlur, cv2.boxFilter: ref utils/util_cylinder.py:1755-1758,
 1790-1791) with XLA convolutions over fixed-shape (H, W) float arrays.
-Separable 1D passes keep the FLOP count linear in kernel size; XLA maps them
-onto the TPU's VPU/MXU and fuses neighboring elementwise stages.
+Separable 1D passes keep the FLOP count linear in kernel size, and XLA
+fuses neighboring elementwise stages.
 
 Border-mode parity: cv2's default is BORDER_REFLECT_101, its boxFilter call
 sites use BORDER_REPLICATE, scipy/skimage default to constant -- all three are
@@ -42,9 +42,10 @@ def sep_filter2d(
     """Separable correlation: rows with kx, columns with ky (cv2.sepFilter2D).
 
     img: (H, W); ky: (Ky,); kx: (Kx,).  Implemented as weighted sums of
-    statically shifted slices, NOT lax.conv: a 1-channel conv leaves the MXU
-    idle and measured ~2 ms per 25-tap pass on v5e, while the slice form is a
-    single fused VPU pass over the array per axis.
+    statically shifted slices, NOT lax.conv: a 1-channel conv was slow on
+    the first target accelerator, while the slice form is a single fused
+    elementwise pass over the array per axis (not measured against
+    lax.conv on the GPU).
     """
     ry, rx = ky.shape[0] // 2, kx.shape[0] // 2
     h, w = img.shape
@@ -83,8 +84,8 @@ def gaussian_kernel1d_cv(ksize: int, sigma: float = 0.0) -> jnp.ndarray:
     GaussianBlur(k, 0) calls resolve to the table for its 5x5/7x7 blurs).
 
     Taps come from the single shared source (ops.mxu_conv.gauss_taps_cv) so
-    the XLA filters, the MXU statistic images, and the Pallas kernel can
-    never desynchronize."""
+    the filters and the banded-matmul statistic images can never
+    desynchronize."""
     from cylinder_pose_estimation_tpu.ops.mxu_conv import gauss_taps_cv
 
     return jnp.asarray(gauss_taps_cv(ksize, sigma), dtype=jnp.float32)
@@ -240,7 +241,7 @@ def patch_mean_at(
 
     Replaces the reference's per-point np.mean(gray[y-h:y+h, x-h:x+h]) scans
     (ref utils/util_cylinder.py:1914-1917, 1437-1449): one box filter over the
-    whole image + a gather beats hundreds of dynamic slices on TPU.
+    whole image + a gather in place of hundreds of dynamic slices.
     """
     h, w = img_boxmean.shape
     xi = jnp.clip(jnp.round(xy[..., 0]).astype(jnp.int32), 0, w - 1)

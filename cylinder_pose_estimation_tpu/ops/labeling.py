@@ -12,9 +12,10 @@ equivalents over fixed shapes:
     by a 3x3 min-pool between scans.  Iteration count is static (config).
   * per-component stats: either sort-based segment reduction
     (``component_stats``, any component count) or scan-order first-K
-    enumeration with one-hot MXU reductions (``component_stats_first_k``,
-    the hot-path form) -- scatter-style segment_sum was measured pathological
-    on TPU (~12 ms/call) and is deliberately NOT used anywhere here.
+    enumeration with one-hot matmul reductions (``component_stats_first_k``,
+    the hot-path form) -- scatter-style segment_sum was pathological on the
+    first target accelerator and is deliberately NOT used anywhere here
+    (not measured on the GPU).
   * top/first-K components -> compact (K,) slots with masks, giving the
     fixed-capacity "contour list" every downstream stage consumes.
 """
@@ -83,6 +84,41 @@ def connected_components(mask: jnp.ndarray, iters: int = 16) -> jnp.ndarray:
     return lax.fori_loop(0, iters, round_fn, lab)
 
 
+def window_extreme(
+    x: jnp.ndarray, wy: int, wx: int, fill, op=jnp.minimum
+) -> jnp.ndarray:
+    """``op`` (jnp.minimum or jnp.maximum) over each wy x wx window of the
+    last two axes, stride 1, "SAME" placement, out-of-image taps = ``fill``.
+
+    The same result as an integer ``lax.reduce_window`` with init ``fill``,
+    written as wy * wx shifted slices of a padded copy.  On an H100, XLA's
+    int32 ``reduce_window`` returned wrong values inside the detector
+    program (a fused 3x3 min feeding a count, a strided 2x2 min) while the
+    CPU was right; the slice form is plain elementwise code.
+    """
+    h, w = x.shape[-2:]
+    pad = [(0, 0)] * (x.ndim - 2) + [
+        ((wy - 1) // 2, wy // 2), ((wx - 1) // 2, wx // 2)
+    ]
+    p = jnp.pad(x, pad, constant_values=fill)
+    out = None
+    for dy in range(wy):
+        for dx in range(wx):
+            tap = p[..., dy:dy + h, dx:dx + w]
+            out = tap if out is None else op(out, tap)
+    return out
+
+
+def fixpoint_residual(labels: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
+    """Number of mask pixels with an 8-neighbor in the mask holding a
+    smaller label: 0 iff min-label propagation has reached its fixpoint.
+    Works on (..., H, W)."""
+    big = jnp.iinfo(jnp.int32).max
+    masked = jnp.where(mask, labels.astype(jnp.int32), big)
+    neigh = window_extreme(masked, 3, 3, big)
+    return jnp.sum(mask & (neigh < masked)).astype(jnp.int32)
+
+
 class ComponentStats(NamedTuple):
     """Top-K components of a label image, fixed capacity with masks."""
 
@@ -111,12 +147,11 @@ def _segmented_scan_sorted(vals: jnp.ndarray, boundary: jnp.ndarray, op) -> jnp.
 def component_stats(labels: jnp.ndarray, k: int, min_area: int = 1) -> ComponentStats:
     """Reduce a label image to its K largest components' statistics.
 
-    TPU-shaped implementation: sort-based segment reduction instead of
-    scatter.  Scatter-style segment_sum over H*W segments costs ~12 ms per
-    call on v5e and lax.top_k with k~512 over 307k elements costs ~108 ms
-    (measured); full sorts and associative scans of the same size are
-    effectively free, so everything here is sorts + segmented scans +
-    gathers:
+    Sort-based segment reduction instead of scatter, chosen for the first
+    target accelerator, where scatter-style segment_sum over H*W segments
+    and lax.top_k over the image were slow and full sorts and associative
+    scans were not (not measured on the GPU), so everything here is sorts +
+    segmented scans + gathers:
 
       1. argsort the flat label image (payload follows by gather);
       2. run boundaries where the sorted label changes; per-run sums via
@@ -201,9 +236,7 @@ def peak_key_shift(h: int, w: int, window: int) -> int:
     ceil(log2(H*W)) bits (a fixed 19 only covers <= 524,288 px -- at
     768x1024 it would alias counts into indices and corrupt peaks) and the
     count needs log2(window^2) more; both fields must fit in 31 bits.
-    Static per image size, and computed identically by the XLA joint-peak
-    mirror (models/detector._joint_peaks) and the Pallas preprocess kernel
-    so the two paths produce bit-identical peaks."""
+    Static per image size (used by models/detector._joint_peaks)."""
     shift = max(19, (h * w - 1).bit_length())
     if shift + (window * window).bit_length() > 31:
         raise ValueError(
@@ -217,13 +250,13 @@ def prefix_rank(mask: jnp.ndarray) -> jnp.ndarray:
     """Exclusive rank of each element among the True entries of a flat bool
     mask: rank[i] = (# True in mask[:i+1]) - 1, i.e. ``cumsum(mask) - 1``.
 
-    Implemented as TWO triangular MXU matmuls instead of a length-n cumsum:
-    jnp.cumsum lowers to a ~log2(n)-deep chain of full-array passes whose
-    fixed per-op cost dominates at the detector's sizes (n ~ 20-100k),
-    while a (rows, 128) x (128, 128) within-row prefix plus a (rows, rows)
-    row-offset matmul is two dispatches.  Counts are integers < 2^24, so
-    HIGHEST-precision f32 accumulation is exact (DEFAULT multiplies in bf16
-    and corrupts ranks > 256)."""
+    Implemented as TWO triangular matmuls instead of a length-n cumsum,
+    chosen for the first target accelerator, where jnp.cumsum lowered to a
+    ~log2(n)-deep chain of full-array passes (not measured on the GPU): a
+    (rows, 128) x (128, 128) within-row prefix plus a (rows, rows)
+    row-offset matmul.  Counts are integers < 2^24, so HIGHEST-precision
+    f32 accumulation is exact (a reduced-precision DEFAULT product corrupts
+    ranks > 256)."""
     n = mask.shape[0]
     cols = 128
     rows = -(-n // cols)
@@ -249,8 +282,9 @@ def prefix_rank(mask: jnp.ndarray) -> jnp.ndarray:
 def compact_true_indices(mask: jnp.ndarray, k: int):
     """First-k indices of True entries of a 1-D bool mask.
 
-    Matmul-rank + one-hot MXU projection; ``jnp.nonzero(size=k)`` lowers to
-    an n-sized scatter, which is pathological on TPU (~3 ms at n = 307k).
+    Matmul-rank + one-hot matmul projection; ``jnp.nonzero(size=k)`` lowers
+    to an n-sized scatter, which was slow on the first target accelerator
+    (not measured on the GPU).
     Returns (idx (k,) int32, valid (k,)); invalid slots hold n.
     """
     n = mask.shape[0]
@@ -266,9 +300,8 @@ def compact_true_indices(mask: jnp.ndarray, k: int):
         dimension_numbers=(((0,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
         # HIGHEST is mandatory: the payload carries exact linear indices up
-        # to H*W (~19 bits); the TPU MXU's DEFAULT f32 path multiplies in
-        # bf16 (8-bit mantissa) and was measured to corrupt 40/48 slots at
-        # 480x640.  HIGHEST costs the same here (bandwidth-bound one-hot).
+        # to H*W (~19 bits); a DEFAULT f32 product may run in bf16 or TF32
+        # (8- or 10-bit mantissa), which corrupts the slots.
         precision=jax.lax.Precision.HIGHEST,
     )
     valid = picked[:, 1] > 0.5
@@ -284,15 +317,15 @@ def component_stats_first_k(
 ) -> ComponentStats:
     """Sort-free component stats: first K components in scan order.
 
-    The sort-based ``component_stats`` pays ~4 sorts of H*W elements (~10 ms
-    per call on v5e for 480x640).  This variant instead:
+    The sort-based ``component_stats`` pays ~4 sorts of H*W elements.  This
+    variant instead:
 
       1. finds component roots (pixels whose label equals their own linear
          index) and takes the FIRST K in scan order via cumsum-rank one-hot
-         compaction on the MXU (jnp.nonzero's scatter formulation costs
-         ~2.9 ms/frame on v5e; this is ~0.5 ms);
-      2. reduces per-component sums with one (K, HW) one-hot matmul on the
-         MXU and bbox min/max with masked reductions over the same one-hot.
+         compaction as a matmul (in place of jnp.nonzero's scatter
+         formulation);
+      2. reduces per-component sums with one (K, HW) one-hot matmul and
+         bbox min/max with masked reductions over the same one-hot.
 
     Ordering differs from component_stats (scan order vs count-descending):
     use it where consumers are order-independent (root matching, validity
@@ -339,8 +372,8 @@ def component_stats_first_k(
         jnp.stack([flat.astype(jnp.float32), jnp.ones((hw,), jnp.float32)], -1),
         dimension_numbers=(((0,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
-        # HIGHEST is mandatory (see compact_true_indices): DEFAULT multiplies
-        # in bf16 on the MXU and corrupts the exact root indices.
+        # HIGHEST is mandatory (see compact_true_indices): a DEFAULT product
+        # may run in reduced precision and corrupt the exact root indices.
         precision=jax.lax.Precision.HIGHEST,
     )  # (k, 2): [root value, occupancy]
     vhw = hw if value_shape is None else value_shape[0] * value_shape[1]
@@ -359,7 +392,7 @@ def component_stats_first_k(
         dimension_numbers=(((0,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
         # HIGHEST: coordinate payloads (x, x^2 up to ~2^19) exceed bf16's
-        # 8-bit mantissa; DEFAULT would quantize centroids by +-2 px on TPU.
+        # mantissa; a DEFAULT product in bf16 quantizes centroids by +-2 px.
         precision=jax.lax.Precision.HIGHEST,
     )  # (k, 6)
 

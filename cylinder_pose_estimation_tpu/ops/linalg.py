@@ -2,7 +2,7 @@
 
 The reference leans on MATLAB built-ins (pca, eig, cov, backslash) over tiny
 matrices (ref utils/fitCylinderWPts3.m:7, utils/fitplane.m:12-15,
-utils/estCurvatures.m:14-37).  On TPU these become closed-form 2x2 eigs and
+utils/estCurvatures.m:14-37).  Here these become closed-form 2x2 eigs and
 batched 3x3 ``jnp.linalg.eigh`` over masked point sets -- everything vmaps.
 """
 
@@ -19,13 +19,14 @@ _EPS = 1e-12
 def mm(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Matmul at HIGHEST precision.
 
-    TPU's DEFAULT f32 ``@`` multiplies in bf16 on the MXU (8-bit mantissa).
-    In the geometry chain that quantizes rotation matrices by ~4e-3,
-    projected pixels by ~1 px and normal-equation coefficients enough to
-    cost ~0.5 px of reprojection accuracy (measured TPU-vs-CPU on the
-    16-scene bench).  Every matmul here is tiny (<= a few x hundreds), so
-    full-f32 HIGHEST is free -- use this for ALL numeric-quality matmuls;
-    bandwidth-bound one-hot compactions set it at their call sites already.
+    A DEFAULT-precision f32 ``@`` may multiply in reduced precision: bf16
+    on the first target accelerator, TF32 (10-bit mantissa) on an NVIDIA
+    GPU.  In the geometry chain bf16 was measured to quantize rotation
+    matrices by ~4e-3, projected pixels by ~1 px and to cost ~0.5 px of
+    reprojection accuracy against the CPU path.  Every matmul here is tiny
+    (<= a few x hundreds), so full-f32 HIGHEST is cheap -- use this for ALL
+    numeric-quality matmuls; one-hot compactions set it at their call sites
+    already (tests/test_precision.py walks the programs for stragglers).
     """
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
@@ -114,8 +115,9 @@ def solve_spd(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched SPD solve a @ x = b by an UNROLLED Cholesky (static small P).
 
     a: (..., P, P) symmetric positive definite, b: (..., P).  Replaces
-    jnp.linalg.solve in the hot paths: XLA lowers batched LU on TPU to a
-    latency-heavy multi-kernel loop, while this unrolls to ~P^2 scalar
+    jnp.linalg.solve in the hot paths: XLA lowered batched LU on the first
+    target accelerator to a latency-heavy multi-kernel loop, while this
+    unrolls to ~P^2 scalar
     (batched) elementwise ops that fuse into ONE kernel -- measured the
     dominant cost of each LM iteration (ops/lm.py) and of the per-label
     Vandermonde solves (ops/polyfit.py).
@@ -161,7 +163,8 @@ def solve_spd(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     x = solve_eq(b)
     # Refinement: r = b - a x in the original scaling, then one resolve.
     # The matvec is elementwise-multiply + sum (NOT dot_general) so it is
-    # exact f32 on TPU -- a bf16 residual would defeat the refinement.
+    # exact f32 on every device -- a reduced-precision residual would
+    # defeat the refinement.
     r = b - jnp.sum(a * x[..., None, :], axis=-1)
     return x + solve_eq(r)
 

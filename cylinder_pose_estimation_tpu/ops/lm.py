@@ -80,7 +80,8 @@ def levenberg_marquardt(
         damp = lam * (jnp.diagonal(jtj) + 1e-12)
         # Unrolled Cholesky: jtj + damp*I is SPD by construction (PSD + the
         # positive Marquardt diagonal), and batched LU (jnp.linalg.solve)
-        # is a latency-heavy multi-kernel loop on TPU (see linalg.solve_spd).
+        # was a latency-heavy multi-kernel loop on the first target
+        # accelerator (see linalg.solve_spd).
         delta = solve_spd(jtj + damp * eye, -jtr)
         p_new = p + delta
         r_new = residual_fn(p_new)

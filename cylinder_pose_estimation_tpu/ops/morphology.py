@@ -3,7 +3,7 @@
 Replaces cv2.morphologyEx / cv2.dilate / cv2.erode call sites
 (ref utils/util_cylinder.py:1810-1815 joint extraction opening with 20x1/1x20
 rects; :178-189 rotated-line endpoint dilation + 3x3 erosion; :2000-2004 3x3
-opening) with TPU-friendly forms:
+opening) with static-shape forms:
 
   * rect kernels: separable min/max via lax.reduce_window -- two 1D passes;
   * oriented line kernels at a *traced* angle: logarithmic Minkowski doubling
@@ -134,8 +134,7 @@ def directional_count(
     # covers 2m steps in log passes instead of 2m.  The far-half offsets
     # become d(m)+d(k) instead of d(m+k) (rounding is not additive), a <=1 px
     # lateral re-rasterization; grid-line angles sit near 0 / pi/2 where the
-    # two agree, and the Pallas bridge kernel mirrors this EXACT scheme
-    # (offset-for-offset) so A/B path parity holds by construction.
+    # two agree.
     def d(m):
         dy = jnp.round(sa * m * sign).astype(jnp.int32)
         dx = jnp.round(ca * m * sign).astype(jnp.int32)

@@ -1,13 +1,14 @@
-"""Banded-matrix separable convolutions that ride the MXU.
+"""Banded-matrix separable convolutions, computed as matrix products.
 
 A length-L 1-D correlation along the rows or columns of an (H, W) image can
-be written as a dense matmul with a banded (N, N) matrix.  On TPU that is
-one pass through the 128x128 systolic array (~2 us for a 480x640 image in
-bf16) instead of L VPU shift+FMA passes (~0.4 us per tap) -- the MXU form
-wins for L >~ 8, and it is the idiomatic replacement for the reference's
-``cv2.boxFilter`` / ``cv2.GaussianBlur`` statistics passes
-(ref utils/util_cylinder.py:1914-1917, :1962-1967, :1377-1449) on hardware
-whose FLOPs live in the matrix unit.
+be written as a dense matmul with a banded (N, N) matrix.  This form was
+chosen for the first target accelerator, whose FLOPs live in a matrix unit,
+as the replacement for the reference's ``cv2.boxFilter`` /
+``cv2.GaussianBlur`` statistics passes (ref utils/util_cylinder.py:1914-1917,
+:1962-1967, :1377-1449); it costs O(H^2 W) multiply-adds per pass against
+O(L H W) for a stencil and has not been measured against one on the GPU
+(ROADMAP Speed 5).  The module name keeps its first target's word for the
+matrix unit.
 
 Border semantics: ZERO padding -- the band is clipped at the matrix edge.
 Call sites must either mask borders (the detector's margin band) or only
@@ -20,9 +21,8 @@ with values < 256 (box/ramp filters over 0/1 masks) is EXACT.  CHAINED
 passes whose intermediates exceed 256 (box sums of gray <= 255 reach ~2805)
 are NOT: the second pass's bf16 cast rounds them -- use ``exact=True``
 (f32 operands at HIGHEST precision) for such chains.  For Gaussian taps the
-default's inexactness is the bf16 rounding of taps and operands; every
-caller (Pallas kernel and XLA path alike) shares these helpers so both
-paths see identical values.
+default's inexactness is the bf16 rounding of taps and operands, which
+is the same on every device (a bf16 x bf16 product is exact in f32).
 """
 
 from __future__ import annotations
@@ -92,8 +92,8 @@ def gauss_taps_cv(ksize: int, sigma: float = 0.0) -> tuple:
 def gauss_taps_scipy(sigma: float, truncate: float = 4.0) -> tuple:
     """scipy.ndimage.gaussian_filter1d taps (radius = int(truncate*sigma+.5))
     as Python floats -- the ONE shared source for the sigma-3 ridge filter
-    (ops/image.gaussian_kernel1d_scipy and the Pallas preprocess kernel both
-    derive from this, so the A/B paths cannot desynchronize)."""
+    (ops/image.gaussian_kernel1d_scipy derives from this, so the filters
+    cannot desynchronize)."""
     radius = int(truncate * sigma + 0.5)
     x = np.arange(2 * radius + 1) - radius
     k = np.exp(-(x * x) / (2.0 * sigma * sigma))
@@ -151,12 +151,11 @@ def y_mat(taps: tuple, h: int, exact: bool = False) -> np.ndarray:
 def conv_x(img: jnp.ndarray, bmat: jnp.ndarray, exact: bool = False) -> jnp.ndarray:
     """Correlate along the last axis (width): img (..., H, W) @ bmat (W, W).
 
-    Default: bf16 operands, f32 accumulation (one MXU pass).  ``exact=True``
+    Default: bf16 operands, f32 accumulation (one pass).  ``exact=True``
     keeps f32 operands at HIGHEST precision -- REQUIRED for chained
     conv_y(conv_x(...)) whose intermediates exceed 256 (e.g. box sums of
     gray <= 255: first-pass sums ~2805 would be bf16-recast to 2800 by the
-    second pass, flipping brightness argmaxes); ~3x the MXU passes, still
-    microseconds at image sizes.  Pass x_mat(..., exact=True) with it so the
+    second pass, flipping brightness argmaxes).  Pass x_mat(..., exact=True) with it so the
     taps are not pre-rounded."""
     if exact:
         return jax.lax.dot_general(
@@ -197,10 +196,10 @@ def conv_y(img: jnp.ndarray, amat: jnp.ndarray, exact: bool = False) -> jnp.ndar
 def _taps_rows(idx: jnp.ndarray, taps: tuple, n: int) -> jnp.ndarray:
     """(P, n) matrix whose row p holds ``taps`` centered at column idx[p]:
     rows[p, j] = taps[j - idx[p] + r], zero outside the band -- the
-    gathered-row form of band_matrix, built WITHOUT a gather (TPU dynamic
-    gathers are disproportionately slow; len(taps) where-passes over a
-    (P, n) iota are microseconds).  Uniform (box) taps collapse to a single
-    band compare."""
+    gathered-row form of band_matrix, built WITHOUT a gather (dynamic
+    gathers were slow on the first target accelerator; len(taps)
+    where-passes over a (P, n) iota are small).  Uniform (box) taps collapse
+    to a single band compare."""
     r = len(taps) // 2
     jj = jnp.arange(n, dtype=jnp.int32)[None, :]
     off = jj - idx[:, None].astype(jnp.int32) + r
@@ -225,7 +224,7 @@ def conv_at_points(
     Equivalent to conv_y(conv_x(img, x_mat(taps, W, exact=True)),
     y_mat(taps, H, exact=True)) gathered at (ys, xs), up to f32 summation
     order (HIGHEST-precision band dots either way): the filtered image +
-    (P,)-gather form costs two full (H/W)-sized exact matmuls PLUS a TPU
+    (P,)-gather form costs two full (H/W)-sized exact matmuls PLUS a
     dynamic gather; this per-point form is one (P, H) x (H, W) HIGHEST
     matmul and an elementwise row dot.  Zero padding at borders, like
     band_matrix.  P stays modest (hundreds), so the (P, W) intermediates

@@ -66,7 +66,7 @@ def masked_polyfit(
     atb = mm(jnp.swapaxes(aw, -1, -2), (y * w)[..., None])
     ata = ata + 1e-8 * jnp.eye(degree + 1, dtype=dtype)
     # SPD by construction (Gram + ridge); the unrolled Cholesky fuses into
-    # one elementwise kernel where batched LU is a TPU latency sink.
+    # one elementwise kernel in place of a batched LU.
     cs = solve_spd(ata, atb[..., 0])  # scaled-basis coeffs
 
     # Expand p((x - mu) / sigma) back to raw-x coefficients via binomials.

@@ -8,7 +8,7 @@ side with undistortImage(..., 'cubic') (ref utils/preProcessing.m:12-13).
 cv2.undistort semantics: for every *destination* (undistorted) pixel, push its
 normalized coordinates through the forward distortion model to find the source
 pixel in the distorted image, then sample.  That is a dense, branch-free map
--- ideal TPU shape: one fused coordinate computation + one bilinear gather.
+-- one fused coordinate computation + one bilinear gather.
 """
 
 from __future__ import annotations

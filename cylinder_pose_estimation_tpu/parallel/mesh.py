@@ -3,7 +3,7 @@
 The reference has no distributed runtime at all (SURVEY.md §2: the only
 concurrency is intra-image thread pools); its scale axis is the *frame count*,
 looped serially (ref exp_gridDetection.m:55, python_grid_detection_cylinder.py:32).
-The TPU-native scaling story is therefore pure data parallelism over frames on
+The scaling story is therefore pure data parallelism over frames on
 a 1-D mesh, with one all-gather of per-frame fit outputs feeding the tiny
 replicated 6-dof registration solve (SURVEY.md §5 "distributed communication
 backend").  These helpers build that mesh.

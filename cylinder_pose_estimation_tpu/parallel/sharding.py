@@ -8,7 +8,7 @@ SURVEY.md §5):
     batched program and let XLA insert the collectives.  The detection +
     per-frame fit stages are embarrassingly frame-parallel (zero
     communication); the multi-frame registration consumes all frames' points,
-    which XLA lowers to one all-gather over ICI before the replicated 6-dof
+    which XLA lowers to one all-gather across the devices before the replicated 6-dof
     solve.
   * ``shard_map_pose``: explicit per-device shard_map for the
     detect->triangulate->fit stage, for cases where manual control of the

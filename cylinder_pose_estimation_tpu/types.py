@@ -129,24 +129,17 @@ class DetectResult(NamedTuple):
     max_line_tilt: jnp.ndarray   # () float rad: median |line tilt| from the
                                  # grid axes, max over rows/cols -- steep
                                  # diagonals are the documented chaotic
-                                 # regime (NEXT.md job 019)
+                                 # regime (PARITY.md, known deviations)
     stable: jnp.ndarray          # () bool: converged AND tilt within
                                  # cfg.max_stable_tilt; unstable frames are
                                  # masked by pipeline.frame_health
     bridged_components: jnp.ndarray  # () int32: fragment components MERGED
                                  # by line bridging (pre-bridge count minus
-                                 # final count; exact on the XLA path and on
-                                 # Pallas whenever the pre-bridge labeling's
-                                 # fixpoint check passes, else a conservative
-                                 # overcount; end-of-line extensions do not
-                                 # merge and do not count).
-                                 # Observability contract: 0 -> backend id
-                                 # sets equal; 0 AND max_line_tilt <= ~2 deg
-                                 # -> positions exact too (oriented bridge
-                                 # morphology discretizes identically only
-                                 # at axis angles).  Gap-bridged frames may
-                                 # re-rank near gate boundaries -- log /
-                                 # downweight them in deployments
+                                 # final count, both exact; end-of-line
+                                 # extensions do not merge and do not
+                                 # count).  Gap-bridged frames may re-rank
+                                 # near gate boundaries -- log / downweight
+                                 # them in deployments
 
 
 class RegistrationResult(NamedTuple):
@@ -161,7 +154,7 @@ class RegistrationResult(NamedTuple):
                               # point radius (scale-free): ~5.5e-3 for a
                               # well-spread pan/tilt sweep, ~2.2e-4 when the
                               # along-axis translation goes gauge-flat
-                              # (NEXT.md narrow-swing diagnosis)
+                              # (PARITY.md, known deviations)
     well_posed: jnp.ndarray   # () bool: jtj_min_eig >= config.min_observability
                               # -- False means t_cam_agv has a practically
                               # unconstrained direction (typically translation

@@ -19,7 +19,7 @@ import tempfile
 
 import jax
 
-# Host-CPU demo; on a TPU host drop this line (and set use_pallas=True).
+# Host-CPU demo; drop this line to run on the GPU.
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
@@ -80,7 +80,7 @@ def main() -> None:
         theta_span=2.2,
     )
     img = render_grid_image(sc.gp1.xy, sc.gp1.valid, 9, 9, h, w)
-    cfg = CylinderDetectConfig(height=h, width=w, use_pallas=False)
+    cfg = CylinderDetectConfig(height=h, width=w)
     res = jax.jit(lambda im: detect_grid(im, cfg))(img)
     print(
         "detect_grid:", int(res.grid.valid.sum()),

@@ -7,8 +7,7 @@ recipe: frames arrive as a (N, H, W) uint8 source too large for HBM, and
 detect→fit step with a three-deep pipeline — an uploader thread stages chunk
 k+1's H2D while chunk k computes and chunk k-1's results materialize — and
 ``compact=True`` reduces each chunk on device to a ~200 B/frame
-StreamPoseSummary before readback (device→host bandwidth, not compute, is
-the streaming bottleneck on remote-attached accelerators).
+StreamPoseSummary before readback.
 
 Run:  python examples/streaming_serving.py      (from the repo root)
 """
@@ -17,7 +16,7 @@ import time
 
 import jax
 
-# Host-CPU demo; on a TPU host drop this line (and set use_pallas=True).
+# Host-CPU demo; drop this line to run on the GPU.
 jax.config.update("jax_platforms", "cpu")
 
 import numpy as np

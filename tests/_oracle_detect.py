@@ -1,6 +1,6 @@
 """Literal NumPy/SciPy oracle for the DETECTION BOOKKEEPING chain.
 
-VERDICT r4 next-step #1: every numeric detection stage is oracle-pinned, but
+Every numeric detection stage is oracle-pinned, but
 the label bookkeeping -- component grouping -> min-y sorting -> polynomial
 fitting -> first-row/last-col pruning -> scipy-root intersections ->
 positional relabeling -> brightness-centered id assignment -> JSON assembly

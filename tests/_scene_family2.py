@@ -1,6 +1,6 @@
 """Independent scene family: a SECOND image-formation model for detection e2e.
 
-VERDICT r4 missing #2: every end-to-end image the detector had ever seen came
+Every end-to-end image the detector had ever seen came
 from utils/synthetic.render_grid_image (constant-width Gaussian-profile tubes
 + additive Gaussian noise), so detector and test scenes shared generative
 assumptions, and every fence threshold was calibrated on that one family.

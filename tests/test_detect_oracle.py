@@ -1,4 +1,4 @@
-"""End-to-end detection BOOKKEEPING oracle tests (VERDICT r4 next-step #1).
+"""End-to-end detection BOOKKEEPING oracle tests.
 
 The literal reference chain (tests/_oracle_detect.py: scipy.ndimage label ->
 group/min-y sort -> polyfit -> remove_label -> scipy-root intersections ->
@@ -48,8 +48,8 @@ def scenes():
     _, (i1, i2) = _example_pair(H, W, n_frames=3)
     out = [i1[s] for s in range(3)] + [i2[0]]
     # the rendered line-gap stress scene: bridging is ACTIVE, so the chain
-    # is compared in the regime where fragments merge (NEXT.md r4 lesson:
-    # bench scenes never bridge).
+    # is compared in the regime where fragments merge (bench scenes never
+    # bridge).
     from test_detector_hardening import _gapped_scene
 
     out.append(np.asarray(_gapped_scene(seed=5)[0]))
@@ -108,7 +108,7 @@ def _assert_match(repo, center, oracle, ocenter, tol=0.05):
 def _cfg(**kw):
     from cylinder_pose_estimation_tpu.config import CylinderDetectConfig
 
-    return CylinderDetectConfig(height=H, width=W, use_pallas=False, **kw)
+    return CylinderDetectConfig(height=H, width=W, **kw)
 
 
 def test_bookkeeping_matches_oracle_bench_scene(scenes):

@@ -198,56 +198,13 @@ def test_stage_probe_truncations_trace():
         assert out.shape == () and out.dtype == jnp.float32, st
 
 
-def test_plane_detection_pallas_interpret_matches_xla():
-    """Plane-mode Pallas path parity, CPU-checkable (interpret mode): the
-    fused kernels must reproduce the XLA plane chain exactly -- id set and
-    positions.  Closes the same committed-coverage gap the cylinder golden
-    pin closed: plane+Pallas was previously validated only by off-CI TPU
-    jobs (NEXT.md job 11, 99/99), which CI could not re-check."""
-    stereo = default_stereo(cx=W / 2.0, cy=H / 2.0)
-    scene = plane_grid_points(stereo, capacity=256, n_rows=9, n_cols=9,
-                              spacing=23.0)
-    img = render_grid_image(scene.gp1.xy, scene.gp1.valid, 9, 9, H, W)
-    rng = np.random.default_rng(3)
-    img = jnp.clip(
-        img.astype(jnp.float32)
-        + jnp.asarray(rng.normal(0, 2.0, (H, W)), jnp.float32),
-        0, 255,
-    )
-    cfg_x = PlaneDetectConfig(height=H, width=W, roi_threshold=30.0)
-    cfg_p = PlaneDetectConfig(height=H, width=W, roi_threshold=30.0,
-                              use_pallas=True, pallas_interpret=True)
-    res_x = detect_grid(img, cfg_x)
-    res_p = detect_grid(img, cfg_p)
-    assert bool(res_x.ok) and bool(res_p.ok)
-
-    def id_map(res):
-        xy = np.asarray(res.grid.xy)
-        idx = np.asarray(res.grid.idx)
-        v = np.asarray(res.grid.valid)
-        return {tuple(idx[i]): xy[i] for i in range(len(v)) if v[i]}
-
-    mx, mp = id_map(res_x), id_map(res_p)
-    assert set(mp) == set(mx)
-    for key in mx:
-        assert np.linalg.norm(mp[key] - mx[key]) < 0.5, (key, mp[key], mx[key])
-
-
 def test_plane_randomized_backend_agreement():
-    """Randomized plane scenes (grid sizes 7-9, spacings 18-23): XLA and
-    Pallas-interpret must agree exactly -- the plane-mode counterpart of the
-    cylinder sweep (all 8 seeds observed at 0.0000 px when committed)."""
+    """Randomized plane scenes (grid sizes 7-9, spacings 18-23): every
+    detected id lies on the rendered lattice at its ground-truth position
+    (sub-pixel bulk, bounded worst case) -- the plane-mode counterpart of
+    the cylinder sweep."""
     stereo = default_stereo(cx=W / 2.0, cy=H / 2.0)
-    cfg_x = PlaneDetectConfig(height=H, width=W, roi_threshold=30.0)
-    cfg_p = PlaneDetectConfig(height=H, width=W, roi_threshold=30.0,
-                              use_pallas=True, pallas_interpret=True)
-
-    def id_map(res):
-        xy = np.asarray(res.grid.xy)
-        idx = np.asarray(res.grid.idx)
-        v = np.asarray(res.grid.valid)
-        return {tuple(int(q) for q in idx[i]): xy[i]
-                for i in range(len(v)) if v[i]}
+    cfg = PlaneDetectConfig(height=H, width=W, roi_threshold=30.0)
 
     for seed in range(4):
         rng = np.random.default_rng(seed)
@@ -262,10 +219,17 @@ def test_plane_randomized_backend_agreement():
         img = np.clip(
             img + rng.normal(0, 2.0, (H, W)).astype(np.float32), 0, 255
         )
-        rx = detect_grid(jnp.asarray(img), cfg_x)
-        rp = detect_grid(jnp.asarray(img), cfg_p)
-        mx, mp = id_map(rx), id_map(rp)
-        assert len(mx) >= 40, (seed, len(mx))
-        assert set(mp) == set(mx), seed
-        for key in mx:
-            assert np.linalg.norm(mp[key] - mx[key]) < 0.25, (seed, key)
+        res = detect_grid(jnp.asarray(img), cfg)
+        gt = _gt_map(scene.gp1, n * n)
+        idx = np.asarray(res.grid.idx)
+        xy = np.asarray(res.grid.xy)
+        valid = np.asarray(res.grid.valid)
+        keys = [tuple(int(q) for q in idx[i]) for i in range(len(valid)) if valid[i]]
+        assert len(keys) >= 40, (seed, len(keys))
+        assert all(k in gt for k in keys), (seed, [k for k in keys if k not in gt])
+        errs = np.asarray([
+            np.linalg.norm(xy[i] - gt[tuple(int(q) for q in idx[i])])
+            for i in range(len(valid)) if valid[i]
+        ])
+        assert np.median(errs) < 1.0, (seed, np.median(errs))
+        assert errs.max() < 3.0, (seed, errs.max())

@@ -1,4 +1,4 @@
-"""Distortion-in-the-loop end-to-end tests (VERDICT r2 weak #3).
+"""Distortion-in-the-loop end-to-end tests.
 
 Every other e2e test runs with zero distortion coefficients, making
 undistortion an identity resample.  Here the sensor images are rendered

@@ -197,7 +197,7 @@ def test_directional_count_steep_thin_diagonal():
     # (spine fwd=3/bwd=0, riser fwd=0/bwd=3 here) -- i.e. a one-sided
     # endpoint gate DOES fire mid-line on 1-px steep diagonals.  This is
     # the accepted deviation from the reference's per-contour PCA endpoints
-    # (ADVICE r2); steep scenes are fenced by DetectResult.labels_converged
+    #; steep scenes are fenced by DetectResult.labels_converged
     # rather than by endpoint fidelity.
     assert fwd[30, 19] + bwd[30, 19] >= 3  # spine interior: occupied one way
     assert fwd[31, 19] + bwd[31, 19] >= 3  # riser interior: occupied one way

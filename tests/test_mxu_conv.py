@@ -1,4 +1,4 @@
-"""Banded-matrix MXU convolution helpers (ops/mxu_conv).
+"""Banded-matrix convolution helpers (ops/mxu_conv).
 
 Exactness contract: box/ramp taps on 0/1 masks give EXACT integer results
 (bf16 products of small integers accumulate exactly in f32); Gaussian taps

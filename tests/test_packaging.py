@@ -1,4 +1,4 @@
-"""Packaging / public-API surface tests (VERDICT r4 #7).
+"""Packaging / public-API surface tests.
 
 The framework is pip-installable (pyproject.toml); the versioned public API
 is the package root's ``__all__``.  These tests pin that surface so a rename

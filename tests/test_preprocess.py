@@ -143,7 +143,7 @@ def test_interval_anomaly_mask():
 
 
 def test_clahe_matches_adapthisteq_oracle():
-    """Oracle pin (VERDICT r4 next-step #3): ops/clahe.py vs a NumPy
+    """Oracle pin: ops/clahe.py vs a NumPy
     transliteration of MATLAB adapthisteq's documented algorithm
     (tests/_oracle_clahe.py: Zuiderveld clip limit, iterative excess
     redistribution, full-range 'uniform' mapping; ref
@@ -206,7 +206,7 @@ def test_undistort_cubic_interpolates_exactly_on_smooth_field():
 
 
 def test_undistort_cubic_vs_bilinear_ridge_shift_bounded():
-    """VERDICT r4 weak #2 / next-step #8: the measured cubic-vs-bilinear
+    """The measured cubic-vs-bilinear
     ridge-position deviation at strong distortion.  A Gaussian line rendered
     in DISTORTED space, undistorted both ways; subpixel ridge centers via
     center-of-gravity per column.  The committed bound documents the

@@ -1,11 +1,10 @@
 """Pin the JAX package against an INDEPENDENT oracle: literal NumPy/SciPy
 ports of the reference's formulas (tests/_oracle.py).
 
-Every other parity test in the suite compares the rebuild against itself
-(Pallas vs XLA, TPU vs CPU); these compare against the reference
-implementation's actual math, so a silent semantic deviation -- a
-Hessian-ridge sign flip, a Sauvola formula typo, a kinematics-chain sign --
-fails the suite (VERDICT r2, missing #2)."""
+Golden fixtures compare the rebuild against itself; these compare against
+the reference implementation's actual math, so a silent semantic deviation
+-- a Hessian-ridge sign flip, a Sauvola formula typo, a kinematics-chain
+sign -- fails the suite."""
 
 from __future__ import annotations
 
@@ -243,8 +242,7 @@ def test_triangulate_matches_svd_dlt():
 
 
 # ---------------------------------------------------------------------------
-# Round-4 oracle extension: the correspondence/registration half (VERDICT r3
-# missing #2) -- chooseIdx, findGridCorrespondences, estCurvatures, fitplane,
+# Round-4 oracle extension: the correspondence/registration half -- chooseIdx, findGridCorrespondences, estCurvatures, fitplane,
 # and the multi-frame registration objective.
 # ---------------------------------------------------------------------------
 

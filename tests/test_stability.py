@@ -1,9 +1,9 @@
 """DetectResult.stable: the fence around the documented steep-diagonal
-chaotic regime (VERDICT r2 weak #1, NEXT.md job 019).
+chaotic regime (PARITY.md, known deviations).
 
-On >= ~30 deg diagonal grids the detection cascade is chaotic -- converged
-Pallas, XLA and CPU runs all label differently -- so instead of pretending
-backend parity there, the detector flags the frame (labels unconverged OR
+On >= ~30 deg diagonal grids the detection cascade is chaotic -- small
+numeric differences change the labels -- so instead of pretending parity
+there, the detector flags the frame (labels unconverged OR
 median line tilt beyond cfg.max_stable_tilt) and pipeline.frame_health
 masks it out of multi-frame registration."""
 
@@ -44,7 +44,7 @@ def _tilted_grid_image(angle_deg: float, n=9, spacing=22.0):
 
 
 def test_steep_diagonal_grid_is_flagged_unstable():
-    """>= 30 deg diagonal (VERDICT r2 done-criterion): the 20-px axis-aligned
+    """>= 30 deg diagonal: the 20-px axis-aligned
     openings shred the lines entirely -- retention ~0 fences the frame (and
     detection also collapses to ok=False)."""
     img = _tilted_grid_image(32.0)
@@ -54,7 +54,7 @@ def test_steep_diagonal_grid_is_flagged_unstable():
 
 
 def test_chaotic_window_flagged_while_ok():
-    """The REAL hazard (NEXT.md job 019): at ~26 deg detection still returns
+    """The REAL hazard: at ~26 deg detection still returns
     a plausible grid (ok=True) but the mask retention has collapsed -- the
     regime where backends disagree chaotically.  stable must be False while
     ok is True, so only the stability fence saves the frame."""
@@ -75,7 +75,7 @@ def test_moderate_tilt_measured_accurately():
 
 
 def test_19deg_sits_stably_inside_the_fence():
-    """VERDICT r3 weak #6: a 19 deg scene (measured tilt 0.322 vs the 0.35
+    """A 19 deg scene (measured tilt 0.322 vs the 0.35
     fence) must land -- and STAY, across noise reseeds -- on the stable side.
     The tilt diagnostic is a median over all fitted lines, so +-2 px pixel
     noise moves it by < 1e-3 rad (measured: 0.322 on every seed)."""

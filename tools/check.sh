@@ -1,10 +1,9 @@
 #!/usr/bin/env bash
-# Pre-snapshot gate (VERDICT r3 #3: "suite green before snapshot").
+# Full CPU test gate.
 #
-# Runs BOTH suites -- fast and slow -- on the CPU backend exactly like CI,
-# and refuses to pass on any failure.  Run this before every end-of-round
-# commit; the round-3 snapshot shipped a red slow test because nothing
-# forced the slow suite to run.
+# Runs BOTH suites -- fast and slow -- on the CPU backend with 8 virtual
+# devices, and refuses to pass on any failure.  The GPU path is checked
+# separately on the card by `python chip_smoke.py`.
 #
 # Usage: tools/check.sh [extra pytest args]
 set -euo pipefail
